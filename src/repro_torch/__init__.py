@@ -1,0 +1,6 @@
+"""PyTorch/CUDA port of the BRECQ serving stack.
+
+Module paths mirror the JAX reference package ``repro``; this package
+imports ``torch``, ``numpy`` and the standard library only. The packed
+matmul kernels are hand-written CUDA for Hopper (``kernels/qmatmul``).
+"""

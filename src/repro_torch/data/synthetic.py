@@ -1,0 +1,51 @@
+"""Deterministic synthetic corpus with learnable structure (numpy only).
+
+A sparse first-order Markov chain over the vocab (each token has k
+successors with zipf-ish weights) plus periodic copy segments. Samples
+are token-identical to the JAX package's ``repro.data.Corpus`` for the
+same (seed, host, step), so both packages serve the same prompts.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass(frozen=True)
+class CorpusConfig:
+    vocab: int
+    branching: int = 12  # successors per token
+    copy_period: int = 64  # every N tokens, re-emit an earlier span
+    copy_len: int = 8
+    seed: int = 1234
+
+
+class Corpus:
+    def __init__(self, cfg: CorpusConfig):
+        self.cfg = cfg
+        rng = np.random.default_rng(cfg.seed)
+        k = cfg.branching
+        self.successors = rng.integers(0, cfg.vocab, (cfg.vocab, k)).astype(np.int32)
+        w = 1.0 / np.arange(1, k + 1) ** 1.2
+        self.weights = (w / w.sum()).astype(np.float64)
+
+    def sample(self, batch: int, seq: int, *, seed: int, host: int = 0,
+               step: int = 0) -> np.ndarray:
+        """(batch, seq) int32 tokens; deterministic in (seed, host, step)."""
+        cfg = self.cfg
+        rng = np.random.default_rng(
+            np.random.SeedSequence([cfg.seed, seed, host, step]))
+        toks = np.empty((batch, seq), np.int32)
+        cur = rng.integers(0, cfg.vocab, batch)
+        choices = rng.choice(cfg.branching, size=(batch, seq), p=self.weights)
+        toks[:, 0] = cur
+        for t in range(1, seq):
+            cur = self.successors[cur, choices[:, t]]
+            # copy mechanism: splice in an earlier span periodically
+            if cfg.copy_period and t % cfg.copy_period == 0 and t > cfg.copy_len:
+                src = t - cfg.copy_len - 1
+                toks[:, t - cfg.copy_len: t] = toks[:, src: src + cfg.copy_len]
+                cur = toks[:, t - 1]
+            toks[:, t] = cur
+        return toks

@@ -1,0 +1,256 @@
+"""Batched serving entry point: prefill + greedy decode from a packed artifact.
+
+The port of the JAX package's ``repro.launch.serve`` fixed-batch path:
+  1. resolve weights — FP params, a saved :class:`QuantizedArtifact`
+     (``--artifact DIR``), or a fresh RTN artifact (``--quant BITS``,
+     which is saved and re-loaded with verification so the served bytes
+     are exactly what a deployment would ship),
+  2. prefill the prompt batch, 3. decode N tokens greedily,
+  4. report artifact bytes vs FP, tokens/s and which qmm tiers fired.
+
+Packed weights stay int codes on the device end to end: every linear runs
+through ``QuantHook.packed_matmul`` -> ``qmm``, which launches the CUDA
+``qgemv`` (decode) and ``qmatmul`` (prefill) kernels for CUDA tensors.
+
+Runs on the GPU by default; ``--device cpu`` runs the plain PyTorch path
+on the host. Usage:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --quant 4
+"""
+from __future__ import annotations
+
+import argparse
+import copy
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+from ..data import Corpus, CorpusConfig
+from ..deploy import (ArtifactMismatchError, QuantizedArtifact, rtn_artifact,
+                      tree_bytes)
+from ..device import resolve
+from ..interop import tree_leaves, tree_map
+from ..kernels.qmatmul import kernel as qmm_kernel
+from ..kernels.qmatmul import ops as qmm_ops
+from ..models import get_model
+from ..models.common import NO_QUANT
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--arch", default="brecq_lm_100m")
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--prompt-len", type=int, default=64)
+    p.add_argument("--gen-len", type=int, default=32)
+    p.add_argument("--quant", type=int, default=None, choices=[2, 4, 8],
+                   help="pack weights to this many bits (RTN artifact)")
+    p.add_argument("--group", type=int, default=None)
+    p.add_argument("--artifact", default=None,
+                   help="serve from a saved QuantizedArtifact directory")
+    p.add_argument("--save-artifact", default=None,
+                   help="where --quant saves its artifact (default: tmpdir)")
+    p.add_argument("--no-compare-fp", action="store_true",
+                   help="skip the FP throughput reference pass")
+    p.add_argument("--packed-backend", default="auto",
+                   choices=list(qmm_ops.BACKENDS),
+                   help="qmm execution path for packed weights: the CUDA "
+                        "kernels, the plain PyTorch version, or auto (by "
+                        "the tensors' device); tiers are still picked by "
+                        "shape")
+    p.add_argument("--no-verify", action="store_true",
+                   help="skip artifact schema/checksum verification at load")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default=None,
+                   help="torch device (default: cuda; raises without a GPU)")
+    return p.parse_args(argv)
+
+
+def _check_manifest(manifest: dict, cfg) -> None:
+    """Fail fast when a loaded artifact doesn't match the model built
+    from --arch/--reduced."""
+    for field, got in (("arch", cfg.name), ("n_layers", cfg.n_layers),
+                       ("d_model", cfg.d_model), ("vocab", cfg.vocab)):
+        want = manifest.get(field)
+        if want is not None and want != got:
+            raise ArtifactMismatchError(
+                f"artifact was exported for {field}={want!r} but the served "
+                f"model has {field}={got!r} — pass the matching --arch/"
+                f"--reduced flags (manifest: arch={manifest.get('arch')!r}, "
+                f"n_layers={manifest.get('n_layers')}, "
+                f"d_model={manifest.get('d_model')}, "
+                f"vocab={manifest.get('vocab')})")
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def run_prefill_decode(model, params, batch, *, batch_size: int,
+                       prompt_len: int, gen_len: int, hook=None, tag="fp",
+                       quiet=False):
+    """One prefill + ``gen_len`` greedy decode steps; returns (gen tokens
+    (B, gen_len), stats).
+
+    ``t_compile`` covers loading the kernel library (building it on first
+    use) and one warm-up prefill and decode step on a scratch cache, so
+    ``t_prefill``/``t_decode`` are steady-state walls. ``qmm_tiers``
+    counts the tiers the warm-up prefill and decode step dispatched to
+    (the JAX package counts them once per traced program).
+    """
+    hook = hook or NO_QUANT
+    tokens = batch["tokens"]
+    device = tokens.device
+
+    def new_cache():
+        return model.init_cache(batch_size, prompt_len + gen_len,
+                                torch.float32, device)
+
+    packed_cuda = (device.type == "cuda"
+                   and any(t.dtype == torch.int8 for t in tree_leaves(params))
+                   and hook.packed_backend != "torch")
+    tiers0 = dict(qmm_ops.TIER_COUNTS)
+    t0 = time.perf_counter()
+    if packed_cuda:
+        qmm_kernel.load_library()
+    logits, warm = model.prefill(params, batch, new_cache(), hook)
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    pos0 = torch.full((batch_size,), prompt_len, dtype=torch.int32, device=device)
+    model.decode_step(params, tok, warm, pos0, hook)
+    _sync(device)
+    t_compile = time.perf_counter() - t0
+    tiers = {k: qmm_ops.TIER_COUNTS[k] - tiers0[k] for k in tiers0}
+    del warm
+
+    cache = new_cache()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, cache, hook)
+    _sync(device)
+    t_prefill = time.perf_counter() - t0
+
+    tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+    out_tokens = [tok]
+    t0 = time.perf_counter()
+    for i in range(gen_len - 1):
+        pos = torch.full((batch_size,), prompt_len + i, dtype=torch.int32,
+                         device=device)
+        logits, cache = model.decode_step(params, tok, cache, pos, hook)
+        tok = torch.argmax(logits, -1)[:, None].to(torch.int32)
+        out_tokens.append(tok)
+    _sync(device)
+    t_decode = time.perf_counter() - t0
+    toks = batch_size * (gen_len - 1)
+    tok_s = toks / max(t_decode, 1e-9)
+    prefill_tok_s = batch_size * prompt_len / max(t_prefill, 1e-9)
+    if not quiet:
+        used = ",".join(f"{k}={v}" for k, v in tiers.items() if v) or "none"
+        note = "" if qmm_ops.decode_tier_enabled() else " (decode tier off)"
+        print(f"[{tag}] compile {t_compile:.2f}s; prefill {batch_size}x"
+              f"{prompt_len} in {t_prefill:.4f}s ({prefill_tok_s:.0f} tok/s); "
+              f"decode {toks} tokens in {t_decode:.4f}s ({tok_s:.1f} tok/s); "
+              f"qmm tiers: {used}{note}")
+    gen = torch.cat(out_tokens, dim=1)
+    return gen, {"t_prefill": t_prefill, "t_decode": t_decode,
+                 "t_compile": t_compile, "tok_s": tok_s,
+                 "prefill_tok_s": prefill_tok_s, "qmm_tiers": tiers,
+                 "decode_tier_enabled": qmm_ops.decode_tier_enabled()}
+
+
+def _run_once(model, params, batch, args, hook=None, tag="fp"):
+    return run_prefill_decode(model, params, batch, batch_size=args.batch,
+                              prompt_len=args.prompt_len,
+                              gen_len=args.gen_len, hook=hook, tag=tag)
+
+
+def main(argv=None, params=None):
+    """Serve once; returns a dict with the generated ``tokens`` (B,
+    gen_len), the packed run's ``stats`` (the FP run's when no artifact),
+    ``fp_stats`` when the FP pass ran, and ``artifact_bytes``/``fp_bytes``.
+
+    ``params`` (optional) are FP weights to serve instead of random ones
+    drawn from ``--seed``; they are moved to the serving device.
+    """
+    args = parse_args(argv)
+    device = resolve(args.device)
+    cfg, model = get_model(args.arch, reduced=args.reduced)
+    if params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = model.init(gen)
+    else:
+        params = tree_map(lambda t: t.to(device), params)
+    fp_bytes = tree_bytes(params)
+
+    artifact = None
+    tmp_dir = None  # cleaned on exit when the user didn't ask to keep it
+    try:
+        if args.artifact:
+            artifact = QuantizedArtifact.load(args.artifact,
+                                              verify=not args.no_verify)
+            _check_manifest(artifact.manifest, cfg)
+            print(f"loaded artifact {args.artifact}: "
+                  f"{artifact.nbytes()/1e6:.1f}MB, manifest arch="
+                  f"{artifact.manifest.get('arch')}")
+        elif args.quant is not None:
+            art = rtn_artifact(params, args.quant, args.group, cfg=cfg)
+            if args.save_artifact:
+                out_dir = args.save_artifact
+            else:
+                tmp_dir = tempfile.TemporaryDirectory(prefix="brecq_art_")
+                out_dir = tmp_dir.name
+            art.save(out_dir)
+            # serve what was shipped, through the same verifying loader
+            artifact = QuantizedArtifact.load(out_dir,
+                                              verify=not args.no_verify)
+            print(f"packed W{args.quant} artifact in "
+                  f"{art.stats['pack_wall_s']:.2f}s -> {out_dir}")
+        if artifact is not None:
+            artifact = artifact.to(device)
+        return _serve(args, cfg, model, params, artifact, fp_bytes, device)
+    finally:
+        if tmp_dir is not None:
+            tmp_dir.cleanup()
+
+
+def _serve(args, cfg, model, params, artifact, fp_bytes, device):
+    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
+    prompts = torch.from_numpy(corpus.sample(args.batch, args.prompt_len, seed=7))
+    batch = {"tokens": prompts.to(device)}
+
+    if artifact is None:
+        gen, stats = _run_once(model, params, batch, args, tag="fp")
+        print("sample:", gen[0][:16].cpu().numpy())
+        return {"tokens": gen, "stats": stats, "fp_bytes": fp_bytes}
+
+    art_bytes = artifact.nbytes()
+    print(f"weights resident as packed int codes: {fp_bytes/1e6:.1f}MB fp32 -> "
+          f"{art_bytes/1e6:.1f}MB packed ({art_bytes/fp_bytes:.3f}x)")
+    if art_bytes >= fp_bytes:
+        raise ArtifactMismatchError(
+            f"packed artifact ({art_bytes} bytes) is not smaller than the FP "
+            f"model ({fp_bytes} bytes) — the artifact does not belong to "
+            f"this model or holds unpacked weights")
+
+    hook = artifact.hook()
+    if args.packed_backend != "auto":
+        hook = copy.copy(hook)  # NO_QUANT is a shared singleton
+        hook.packed_backend = args.packed_backend
+    gen, qstat = _run_once(model, artifact.params, batch, args,
+                           hook=hook, tag="packed")
+    out = {"tokens": gen, "stats": qstat, "artifact_bytes": art_bytes,
+           "fp_bytes": fp_bytes}
+    if not args.no_compare_fp:
+        _, fstat = _run_once(model, params, batch, args, tag="fp")
+        out["fp_stats"] = fstat
+        print(f"packed vs fp: {qstat['tok_s']:.1f} vs {fstat['tok_s']:.1f} tok/s "
+              f"decode; bytes {art_bytes/1e6:.1f}MB vs {fp_bytes/1e6:.1f}MB")
+    print("sample:", np.asarray(gen[0][:16].cpu()))
+    return out
+
+
+if __name__ == "__main__":
+    main()

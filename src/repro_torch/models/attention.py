@@ -1,0 +1,133 @@
+"""GQA / sliding-window self-attention with a dense KV cache.
+
+A single :class:`AttnSpec` covers the dense family's attention variants.
+Caches are ring buffers for windowed layers and linear buffers otherwise.
+The cache is updated in place (the JAX package donates it to the jitted
+step instead); ``prefill``/``decode`` return it for symmetry. The paged
+cache comes with the serve-engine slice, cross-attention with the VLM
+and encoder-decoder families.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from . import common as cm
+from .common import Ctx
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnSpec:
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    rope_theta: float = 10000.0
+    window: Optional[int] = None  # sliding-window size, None = global
+    causal: bool = True
+    use_rope: bool = True
+    qk_norm: bool = False  # qwen3-style per-head RMS on q/k
+    q_chunk: int = 1024
+    kv_chunk: int = 1024
+
+
+def init(gen: torch.Generator, spec: AttnSpec):
+    p = {
+        "wq": cm.dense_init(gen, spec.d_model, spec.n_heads * spec.head_dim),
+        "wk": cm.dense_init(gen, spec.d_model, spec.n_kv_heads * spec.head_dim),
+        "wv": cm.dense_init(gen, spec.d_model, spec.n_kv_heads * spec.head_dim),
+        "wo": cm.dense_init(gen, spec.n_heads * spec.head_dim, spec.d_model),
+    }
+    if spec.qk_norm:
+        p["q_norm"] = cm.rmsnorm_init(spec.head_dim, gen.device)
+        p["k_norm"] = cm.rmsnorm_init(spec.head_dim, gen.device)
+    return p
+
+
+def _project_qkv(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor):
+    B, S = x.shape[:2]
+    q = cm.dense(ctx, p, "wq", x).reshape(B, S, spec.n_heads, spec.head_dim)
+    k = cm.dense(ctx, p, "wk", x).reshape(B, S, spec.n_kv_heads, spec.head_dim)
+    v = cm.dense(ctx, p, "wv", x).reshape(B, S, spec.n_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = cm.rmsnorm(p["q_norm"], q)
+        k = cm.rmsnorm(p["k_norm"], k)
+    return q, k, v
+
+
+def _attend_prompt(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor):
+    q, k, v = _project_qkv(ctx, p, spec, x)
+    if spec.use_rope:
+        q = cm.apply_rope(q, ctx.positions, spec.rope_theta)
+        k = cm.apply_rope(k, ctx.positions, spec.rope_theta)
+    out = cm.chunked_attention(
+        q, k, v, ctx.positions, ctx.positions, causal=spec.causal,
+        window=spec.window, q_chunk=spec.q_chunk, kv_chunk=spec.kv_chunk,
+        iota_pos=True)
+    return out, k, v
+
+
+def apply(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence self-attention (train / prefill without cache)."""
+    B, S = x.shape[:2]
+    out, _, _ = _attend_prompt(ctx, p, spec, x)
+    return cm.dense(ctx, p, "wo", out.reshape(B, S, spec.n_heads * spec.head_dim))
+
+
+def init_cache(spec: AttnSpec, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    """Cache dict. Windowed layers use a ring buffer of size ``window``."""
+    slots = min(max_len, spec.window) if spec.window is not None else max_len
+    shape = (batch, slots, spec.n_kv_heads, spec.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+        "pos": torch.full((batch, slots), -1, dtype=torch.int32, device=device),
+    }
+
+
+def prefill(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, cache):
+    """Run full attention over the prompt and fill the cache (in place)."""
+    B, S = x.shape[:2]
+    out, k, v = _attend_prompt(ctx, p, spec, x)
+    slots = cache["k"].shape[1]
+    pos = ctx.positions.to(torch.int32)
+    if slots >= S:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+        cache["pos"][:, :S] = pos
+    else:  # ring buffer smaller than the prompt: keep the tail
+        tail_p = pos[:, S - slots:]
+        idx = (tail_p[0] % slots).long()  # ring-consistent slot = pos % slots
+        cache["k"][:, idx] = k[:, S - slots:].to(cache["k"].dtype)
+        cache["v"][:, idx] = v[:, S - slots:].to(cache["v"].dtype)
+        cache["pos"][:, idx] = tail_p
+    out = out.reshape(B, S, spec.n_heads * spec.head_dim)
+    return cm.dense(ctx, p, "wo", out), cache
+
+
+def decode(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, cache):
+    """Cached decode: append C new tokens to the cache (in place), attend
+    over it. ``ctx.positions`` is (B, C) with the tokens' absolute
+    positions."""
+    if "k_pages" in cache:
+        raise NotImplementedError(
+            "paged KV caches come with the serve-engine slice of the port")
+    B, C = x.shape[:2]
+    q, k, v = _project_qkv(ctx, p, spec, x)
+    if spec.use_rope:
+        q = cm.apply_rope(q, ctx.positions, spec.rope_theta)
+        k = cm.apply_rope(k, ctx.positions, spec.rope_theta)
+    slots = cache["k"].shape[1]
+    pos = ctx.positions.to(torch.int32)  # (B, C)
+    slot = (pos % slots).long()
+    rows = torch.arange(B, device=x.device)[:, None]
+    cache["k"][rows, slot] = k.to(cache["k"].dtype)
+    cache["v"][rows, slot] = v.to(cache["v"].dtype)
+    cache["pos"][rows, slot] = pos
+    out = cm.decode_attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
+                           cache["pos"], pos, window=spec.window)
+    out = out.reshape(B, C, spec.n_heads * spec.head_dim)
+    return cm.dense(ctx, p, "wo", out), cache

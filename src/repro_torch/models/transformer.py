@@ -1,0 +1,255 @@
+"""Decoder-only LM over the stack/sub-layer graph: the dense family.
+
+A model is: embed -> [stack_0 ... stack_k] -> final norm -> head. Each
+*stack* is ``n`` identical blocks whose params are stacked along a
+leading layer dim (the same tree layout as the JAX package's ``LM``, so
+params and artifacts map key for key). The layer loop is written out in
+place of ``lax.scan``: layer ``l`` reads the views ``leaf[l]``.
+
+This slice covers the dense family (uniform, sliding-window and
+local:global attention). The other families raise ``NotImplementedError``
+naming the ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..interop import tree_map
+from . import attention as attn_mod
+from . import common as cm
+from . import mlp as mlp_mod
+from .common import NO_QUANT, Ctx, QuantHook
+
+Params = Any
+
+# ROADMAP items that bring the families this slice does not cover
+_FAMILY_TODO = {
+    "moe": "the MoE slice (ROADMAP module 12)",
+    "ssm": "the other-families slice (ROADMAP module 14: xLSTM)",
+    "hybrid": "the other-families slice (ROADMAP module 14: hymba)",
+    "vlm": "the other-families slice (ROADMAP module 14: VLM cross-attention)",
+    "audio": "the other-families slice (ROADMAP module 14: whisper)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayer:
+    mixer: str  # 'attn' (the only mixer of the dense family)
+    window: Optional[int] = None
+    ffn: Optional[str] = None  # 'mlp' | None
+    causal: bool = True
+    d_ff: int = 0  # mlp width override (0 -> cfg.d_ff)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackDef:
+    name: str
+    n: int
+    subs: tuple[SubLayer, ...]
+
+
+def build_stacks(cfg: ArchConfig) -> list[StackDef]:
+    if cfg.family != "dense" or cfg.enc_dec:
+        todo = _FAMILY_TODO.get(cfg.family, "a later slice of the port")
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family comes with {todo}")
+    if cfg.local_global is not None:
+        nl, ng = cfg.local_global
+        grp = nl + ng
+        if cfg.n_layers % grp:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
+                             f"into local:global groups of {grp}")
+        subs = tuple([SubLayer("attn", window=cfg.local_window, ffn="mlp")] * nl
+                     + [SubLayer("attn", ffn="mlp")] * ng)
+        return [StackDef("body", cfg.n_layers // grp, subs)]
+    return [StackDef("body", cfg.n_layers, (SubLayer("attn", window=cfg.window, ffn="mlp"),))]
+
+
+def _attn_spec(cfg: ArchConfig, sub: SubLayer) -> attn_mod.AttnSpec:
+    return attn_mod.AttnSpec(
+        d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=sub.window,
+        causal=sub.causal, use_rope=True, qk_norm=cfg.qk_norm)
+
+
+def _mlp_spec(cfg: ArchConfig, sub: SubLayer) -> mlp_mod.MLPSpec:
+    return mlp_mod.MLPSpec(cfg.d_model, sub.d_ff or cfg.d_ff, cfg.mlp_kind)
+
+
+def _norm_init(cfg: ArchConfig, device):
+    if cfg.norm == "rms":
+        return cm.rmsnorm_init(cfg.d_model, device)
+    return cm.layernorm_init(cfg.d_model, device)
+
+
+def _norm(cfg: ArchConfig, p, x):
+    return cm.rmsnorm(p, x) if cfg.norm == "rms" else cm.layernorm(p, x)
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a stacked tree: views, so cache writes land in place."""
+    return tree_map(lambda a: a[i], tree)
+
+
+class LM:
+    """Decoder-only language model over the stack/sub-layer graph."""
+
+    def __init__(self, cfg: ArchConfig):
+        self.cfg = cfg
+        self.stacks = build_stacks(cfg)
+
+    # -- init ---------------------------------------------------------------
+
+    def _init_sub(self, gen: torch.Generator, sub: SubLayer) -> Params:
+        cfg = self.cfg
+        p: dict = {"norm1": _norm_init(cfg, gen.device),
+                   "attn": attn_mod.init(gen, _attn_spec(cfg, sub))}
+        if sub.ffn == "mlp":
+            p["norm2"] = _norm_init(cfg, gen.device)
+            p["mlp"] = mlp_mod.init(gen, _mlp_spec(cfg, sub))
+        return p
+
+    def init(self, gen: torch.Generator) -> Params:
+        """Random params on ``gen.device``, drawn from ``gen``."""
+        cfg = self.cfg
+        params: dict = {"embed": cm.embed_init(gen, cfg.vocab, cfg.d_model),
+                        "final_norm": _norm_init(cfg, gen.device)}
+        if not cfg.tie_embeddings:
+            head = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
+                               dtype=torch.float32, device=gen.device)
+            params["head"] = {"w": head * 0.02}
+        for stack in self.stacks:
+            blocks = [{f"sub{i}": self._init_sub(gen, s)
+                       for i, s in enumerate(stack.subs)}
+                      for _ in range(stack.n)]
+            params[stack.name] = _stack_trees(blocks)
+        return params
+
+    # -- sub-layer / block application ---------------------------------------
+
+    def _apply_sub(self, ctx: Ctx, sub: SubLayer, idx: int, p: Params,
+                   x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        sc = ctx.scoped(f"sub{idx}")
+        h = _norm(cfg, p["norm1"], x)
+        x = x + attn_mod.apply(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub), h)
+        if sub.ffn == "mlp":
+            h = _norm(cfg, p["norm2"], x)
+            x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub), h)
+        return x
+
+    def apply_block(self, ctx: Ctx, stack: StackDef, p: Params,
+                    x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One block (one layer's params ``p``); returns (x, moe aux = 0)."""
+        for i, sub in enumerate(stack.subs):
+            x = self._apply_sub(ctx, sub, i, p[f"sub{i}"], x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    # -- full forward ---------------------------------------------------------
+
+    def begin(self, params: Params, batch: dict,
+              quant: QuantHook = NO_QUANT) -> tuple[torch.Tensor, Ctx]:
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=tokens.device).expand(B, S)
+        ctx = Ctx(cfg=self.cfg, positions=positions, quant=quant)
+        return cm.embed_lookup(ctx, params["embed"], tokens), ctx
+
+    def finish(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+        x = _norm(self.cfg, params["final_norm"], x)
+        # tied embeddings pass the embed node itself so lm_head can see a
+        # packed int8 table (table_qscale) and dequantize it
+        head_p = params["head"] if "head" in params else params["embed"]
+        return cm.lm_head(ctx, head_p, x)
+
+    def forward(self, params: Params, batch: dict,
+                quant: QuantHook = NO_QUANT) -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (logits, moe aux)."""
+        x, ctx = self.begin(params, batch, quant)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for stack in self.stacks:
+            for layer in range(stack.n):
+                x, a = self.apply_block(ctx, stack, _layer(params[stack.name], layer), x)
+                aux = aux + a
+        return self.finish(params, x, ctx), aux
+
+    def loss(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
+             *, aux_weight: float = 0.01) -> torch.Tensor:
+        logits, aux = self.forward(params, batch, quant)
+        tokens = batch["tokens"]
+        return cm.softmax_xent(logits[:, :-1], tokens[:, 1:]) + aux_weight * aux
+
+    # -- serving ----------------------------------------------------------------
+
+    def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
+                   device=None):
+        """Dense KV caches, stacked along the layer dim like the params."""
+        cache = {}
+        for stack in self.stacks:
+            layers = [{f"sub{i}": {"attn": attn_mod.init_cache(
+                _attn_spec(self.cfg, s), batch, max_len, dtype, device)}
+                for i, s in enumerate(stack.subs)} for _ in range(stack.n)]
+            cache[stack.name] = _stack_trees(layers)
+        return cache
+
+    def _sub_step(self, ctx: Ctx, sub: SubLayer, idx: int, p, x, cache, step):
+        cfg = self.cfg
+        sc = ctx.scoped(f"sub{idx}")
+        h = _norm(cfg, p["norm1"], x)
+        out, cache["attn"] = step(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub),
+                                  h, cache["attn"])
+        x = x + out
+        if sub.ffn == "mlp":
+            x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub),
+                                  _norm(cfg, p["norm2"], x))
+        return x, cache
+
+    def _run_layers(self, ctx: Ctx, params, x, cache, step):
+        for stack in self.stacks:
+            for layer in range(stack.n):
+                p_i = _layer(params[stack.name], layer)
+                c_i = _layer(cache[stack.name], layer)
+                for i, sub in enumerate(stack.subs):
+                    x, _ = self._sub_step(ctx, sub, i, p_i[f"sub{i}"], x,
+                                          c_i[f"sub{i}"], step)
+        return x
+
+    def prefill(self, params, batch: dict, cache, quant: QuantHook = NO_QUANT):
+        """Process the prompt; returns (last-token logits, filled cache).
+        The cache is filled in place."""
+        x, ctx = self.begin(params, batch, quant)
+        x = self._run_layers(ctx, params, x, cache, attn_mod.prefill)
+        logits = self.finish(params, x[:, -1:], ctx)
+        return logits[:, 0], cache
+
+    def decode_step(self, params, tokens: torch.Tensor, cache, pos: torch.Tensor,
+                    quant: QuantHook = NO_QUANT, extras: Optional[dict] = None,
+                    *, all_logits: bool = False):
+        """Decode C tokens in one cached step (cache updated in place).
+
+        tokens (B, C); pos (B,) absolute position of ``tokens[:, 0]``.
+        Returns last-position logits (B, V), or (B, C, V) with
+        ``all_logits``.
+        """
+        B, C = tokens.shape
+        positions = (pos[:, None] + torch.arange(C, device=pos.device)[None]).to(torch.int32)
+        ctx = Ctx(cfg=self.cfg, positions=positions, quant=quant)
+        if extras:
+            ctx.extras.update(extras)
+        x = cm.embed_lookup(ctx, params["embed"], tokens)
+        x = self._run_layers(ctx, params, x, cache, attn_mod.decode)
+        logits = self.finish(params, x, ctx)
+        return (logits if all_logits else logits[:, -1]), cache
+
+
+def _stack_trees(trees: list) -> Any:
+    """Stack a list of same-structured trees along a new leading dim."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)

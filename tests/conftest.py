@@ -48,3 +48,8 @@ def tiny_trained():
     calib = make_batches(corpus, 6, 8, 64, seed=1, start_step=1000)
     evalb = make_batches(corpus, 3, 16, 64, seed=2, start_step=2000)
     return cfg, model, params, calib, evalb, float(loss)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs a CUDA device (skips without one)")
