@@ -3,19 +3,38 @@
 
 Drives the port (``src/repro_torch``) only, never the JAX package:
 
-  1. build   compile the qmatmul CUDA library from the checkout's sources
+  1. build   compile the qmatmul and kvattn CUDA libraries from the
+             checkout's sources, one nvcc each, both at once; print each
+             one's ptxas registers and spills
   2. parity  hold the ``qgemv`` and ``qmatmul`` kernels against their plain
              PyTorch versions on the card over the serving shapes of
-             brecq-lm-100m (plus ragged M and N), for 2/4/8-bit codes,
+             brecq-lm-100m (decode M 1 and 8; prefill M 32, the engine's
+             chunk, and 512; ragged M and N), for 2/4/8-bit codes,
              per-channel and group-128 scales; time kernel, plain version,
              library yardstick (torch.matmul on the pre-dequantized
              weight) and the bound at the slice shapes
-  3. serve   run ``repro_torch.launch.serve.main`` at full width (batch 8,
+  3. kv      hold ``kv_decode`` against its plain version (the engine's
+             shape, GQA, MQA, ragged S, a window, kpos holes, a row with no
+             valid slot); time kernel, plain version, library yardstick
+             (scaled_dot_product_attention on pre-dequantized,
+             head-expanded K/V) and the bound at the engine's shape and at
+             a long cache
+  4. serve   run ``repro_torch.launch.serve.main`` at full width (batch 8,
              prompt 64, gen 32) for --quant 4 and --quant 2, save the
              artifact, serve it again through --artifact; check that both
              kernels were launched, then replay the generated tokens through
              the plain PyTorch path and compare the logits
-  4. report  one JSON line of kernels, the card's name and power limit, and
+  5. engine  run ``serve.main --quant 4 --engine`` at full width (8 slots,
+             16 staggered streams, int8 paged KV) on random weights scaled
+             so that the greedy tokens vary; check that all three kernels
+             were launched and no page leaked; serve the same schedule
+             through the kernels and through the plain versions (int8 and
+             float32 pools; kv_decode also held against its plain version
+             on every call's inputs; the pools' codes compared), through a
+             deliberately wrong kv_decode (the logits limit must catch it),
+             staggered vs sequential (4 streams), and under page pressure
+             (tokens and logits against the unpressured run)
+  6. report  one JSON line of kernels, the card's name and power limit, and
              the final ``{"ok": true, "device": ...}`` line
 
 Exits non-zero on any failure, and when no CUDA device is available.
@@ -25,6 +44,8 @@ Exits non-zero on any failure, and when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
+import contextlib
 import copy
 import json
 import math
@@ -48,7 +69,36 @@ SLICE_SHAPES = {(768, 768): 4, (768, 2048): 2, (2048, 768): 1}
 RAGGED_N = 200
 L2_FLUSH_BYTES = 100e6  # weight copies per timing: twice the 50 MB L2
 DECODE_M = (1, 8)
-PREFILL_M = (512, 520)  # 520: ragged M
+PREFILL_M = (32, 512, 520)  # the engine's prefill chunk, fixed batch, ragged M
+TIMED_M = (8, 32, 512)  # decode, the engine's prefill chunk, fixed-batch prefill
+
+# kv_decode parity cases (B, H, K, hd, S, window, kpos holes, empty row):
+# the engine's decode shape (8 slots, 12 heads, 6 pages of 16), GQA at
+# TinyLlama's width, MQA at hd 128, ragged S, a window, holes, a row with
+# no valid slot
+KV_CASES = [(8, 12, 12, 64, 96, None, False, False),
+            (8, 32, 4, 64, 2048, None, False, False),
+            (4, 16, 1, 128, 1024, None, False, False),
+            (8, 12, 12, 64, 100, None, False, False),
+            (8, 12, 12, 64, 256, 64, False, False),
+            (8, 12, 12, 64, 96, None, True, False),
+            (8, 12, 12, 64, 96, None, False, True)]
+KV_TIMED = {"engine": (8, 12, 12, 64, 96), "long": (8, 12, 12, 64, 4096)}
+ENGINE_ARGS = ["--arch", "brecq_lm_100m", "--quant", "4", "--engine",
+               "--batch", "8", "--prompt-len", "64", "--gen-len", "32",
+               "--seed", "0", "--kv-dtype", "int8"]
+PRESSURE_PAGES = 19  # below the worst case of 1 + 8 x 6; forces preemptions
+MIN_DISTINCT_TOKENS = 4  # median distinct greedy tokens per engine stream
+MIN_STEPS_SHARED = 0.5  # of an engine comparison's steps on a shared history
+# Engine logits over a shared token history, kernel path vs plain path (and
+# a preempted stream vs its unpressured run). The paths compute K/V through
+# other f32 sums, so a value near an int8 rounding boundary takes the
+# neighbouring code in one of them, and such one-step flips, through 12
+# layers of weights at 3x their init range, move the logits. On an H100 the
+# int8-pool paths differ by 1.8e-2 of max |logit|; with float32 pools, which
+# hold no codes to flip, by 1.2e-5; a kv_decode that drops the newest key
+# gives 0.91 (PERF.md). The limit sits between: ~3x the int8 reading.
+ENGINE_LOGIT_TOL = 5e-2  # of max |logit|
 
 
 def tolerance(ref) -> float:
@@ -100,16 +150,21 @@ def graph_time_ms(torch, fn, arg_sets, replays: int = 3) -> float:
     return ms
 
 
-def phase_build(kernel) -> dict:
+def phase_build(kernels) -> dict:
+    """Build every library at once (one nvcc each, in threads)."""
     t0 = time.perf_counter()
-    kernel.load_library()
-    info = dict(kernel.BUILD_INFO)
-    print(f"[build] {'compiled' if info['built'] else 'loaded'} "
-          f"{info['path']} in {time.perf_counter() - t0:.2f}s")
-    for line in info["ptxas"].splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] ptxas: {line.strip()}")
-    return info
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as ex:
+        list(ex.map(lambda k: k.load_library(), kernels.values()))
+    infos = {}
+    for name, kernel in kernels.items():
+        info = infos[name] = dict(kernel.BUILD_INFO)
+        print(f"[build] {name}: {'compiled' if info['built'] else 'loaded'} "
+              f"{info['path']} in {info['seconds']:.2f}s")
+        for line in info["ptxas"].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {name} ptxas: {line.strip()}")
+    print(f"[build] both libraries ready in {time.perf_counter() - t0:.2f}s")
+    return infos
 
 
 def phase_parity(torch, kernel, ref, pack) -> tuple[dict, list]:
@@ -141,7 +196,7 @@ def phase_parity(torch, kernel, ref, pack) -> tuple[dict, list]:
                         if not math.isfinite(err) or err > tol:
                             fail(f"{name} W{bits} group={group} M={m} K={k} "
                                  f"N={n}: max abs err {err:.3e} > tol {tol:.3e}")
-                        if (k, n) in SLICE_SHAPES and bits in (4, 2) and m in (8, 512):
+                        if (k, n) in SLICE_SHAPES and bits in (4, 2) and m in TIMED_M:
                             rows.append(_time_case(torch, name, fn, plain, ref,
                                                    x, wp, s, bits, group, m, k, n,
                                                    err, rel))
@@ -172,6 +227,94 @@ def _time_case(torch, name, fn, plain, ref, x, wp, s, bits, group, m, k, n,
           f"library {t_lib*1e3:9.2f} us  bound {b_ms*1e3:7.2f} us ({b_by})  "
           f"err {err:.2e} (rel {rel:.2e})")
     return row
+
+
+def kv_inputs(torch, B, H, K, hd, S, *, seed=0, holes=False, empty_row=False):
+    """int8 K/V quantized from random f32 K/V on the card, kpos = arange(S)
+    (with -1 holes, or a batch row with no valid slot), cur in [S/4, S)."""
+    from repro_torch.kernels.kvattn.ops import quantize_kv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, hd), generator=gen, device=dev)
+    k8, v8, ks, vs = quantize_kv(torch.randn((B, S, K, hd), generator=gen, device=dev),
+                                 torch.randn((B, S, K, hd), generator=gen, device=dev))
+    kpos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S).contiguous()
+    if holes:
+        kpos[torch.rand((B, S), generator=gen, device=dev) < 0.3] = -1
+    if empty_row:
+        kpos[0] = -1
+    cur = torch.randint(S // 4, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+    return q, k8, v8, ks, vs, kpos, cur
+
+
+def kv_bound(B, H, K, hd, S) -> tuple[float, str]:
+    """Least time (ms) of kv_decode: q, k8, v8, both f32 scale planes,
+    kpos, cur and out each moved once, against 4*B*H*S*hd f32 operations
+    (two products of S x hd per query row)."""
+    nbytes = (B * H * hd * 4 + 2 * B * S * K * hd + 2 * B * S * K * 4
+              + B * S * 4 + B * 4 + B * H * hd * 4)
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    t_ops = 4 * B * H * S * hd / PEAK_F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
+    """kv_decode vs its plain version on the card; timings at the engine's
+    shape and at a long cache."""
+    import torch.nn.functional as F
+
+    err_max = 0.0
+    for (B, H, K, hd, S, window, holes, empty) in KV_CASES:
+        args = kv_inputs(torch, B, H, K, hd, S, holes=holes, empty_row=empty)
+        got = kv_kernel.kv_decode(*args, window=window)
+        want = kv_ref.kv_decode_ref(*args, window=window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        tol = tolerance(want)
+        err_max = max(err_max, err)
+        if not math.isfinite(err) or err > tol:
+            fail(f"kv_decode B={B} H={H} K={K} hd={hd} S={S} window={window} "
+                 f"holes={holes} empty_row={empty}: max abs err {err:.3e} > "
+                 f"tol {tol:.3e}")
+    print(f"[kv] {len(KV_CASES)} kernel-vs-plain cases within 1e-4*max|ref|+1e-5; "
+          f"max abs err {err_max:.3e}")
+
+    timed = {}
+    for label, (B, H, K, hd, S) in KV_TIMED.items():
+        args = kv_inputs(torch, B, H, K, hd, S, seed=1)
+        per_set = sum(t.numel() * t.element_size() for t in args)
+        copies = max(2, math.ceil(L2_FLUSH_BYTES / per_set))
+        arg_sets = [tuple(t.clone() for t in args) for _ in range(copies)]
+        t_kernel = graph_time_ms(torch, kv_kernel.kv_decode, arg_sets)
+        t_plain = graph_time_ms(torch, kv_ref.kv_decode_ref, arg_sets)
+        del arg_sets
+        # library yardstick: one SDPA call on K/V dequantized and expanded
+        # to H heads beforehand, with the same boolean mask
+        q, k8, v8, ks, vs, kpos, cur = args
+        rep_h = H // K
+        k = (k8.float() * ks[..., None]).repeat_interleave(rep_h, 2).transpose(1, 2)
+        v = (v8.float() * vs[..., None]).repeat_interleave(rep_h, 2).transpose(1, 2)
+        mask = ((kpos >= 0) & (kpos <= cur[:, None]))[:, None, None, :]
+        lib_copies = max(2, math.ceil(L2_FLUSH_BYTES / (2 * k.numel() * 4)))
+        lib_sets = [(q[:, :, None].contiguous(), k.contiguous(), v.contiguous(), mask)
+                    for _ in range(lib_copies)]
+        t_lib = graph_time_ms(
+            torch, lambda a, b, c, m: F.scaled_dot_product_attention(a, b, c, attn_mask=m),
+            lib_sets)
+        lib_out = F.scaled_dot_product_attention(*lib_sets[0][:3], attn_mask=mask)[:, :, 0]
+        lib_err = float((lib_out - kv_ref.kv_decode_ref(*args)).abs().max())
+        del lib_sets, k, v
+        b_ms, b_by = kv_bound(B, H, K, hd, S)
+        timed[label] = {"B": B, "H": H, "K": K, "hd": hd, "S": S, "ms": t_kernel,
+                        "plain_ms": t_plain, "library_ms": t_lib,
+                        "library_max_abs_err": lib_err, "bound_ms": b_ms,
+                        "bound_by": b_by}
+        print(f"[time] kv_decode {label:6s} B={B} H={H} K={K} hd={hd} S={S:4d}: "
+              f"kernel {t_kernel*1e3:9.2f} us  plain {t_plain*1e3:9.2f} us  "
+              f"library {t_lib*1e3:9.2f} us (err {lib_err:.1e})  bound "
+              f"{b_ms*1e3:7.2f} us ({b_by})")
+    return err_max, timed
 
 
 def phase_host(torch, ops, pack) -> dict:
@@ -280,12 +423,267 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
     return launches, results
 
 
-def kernel_line(errs, rows, launches) -> dict:
-    """One entry per kernel: one layer's 7 matmuls at the main path's
-    W4 per-channel setting (decode M=8 for qgemv, prefill M=512 for
-    qmatmul), summed over the layer's shapes."""
+def _counted(kernels, fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before;
+    returns (fn's result, the counts just after)."""
+    for k in kernels.values():
+        k.reset_launches()
+    out = fn()
+    counts = {}
+    for k in kernels.values():
+        counts.update(k.LAUNCHES)
+    return out, counts
+
+
+def engine_params(torch, model, seed: int = 0):
+    """Full-width random weights from ``seed``, with the linear weights at
+    3x their init range and the embedding at std 0.5, as the CPU engine
+    tests make them: at the init's own scale greedy decode settles on one
+    repeated token per stream, which would make the token checks blind."""
+    def scale(tree, key=""):
+        if isinstance(tree, dict):
+            return {k: scale(v, k) for k, v in tree.items()}
+        return tree * {"w": 3.0, "table": 25.0}.get(key, 1.0)
+
+    return scale(model.init(torch.Generator(device="cuda").manual_seed(seed)))
+
+
+@contextlib.contextmanager
+def _attend_wrapped(wrap):
+    """Serve with ``kernels.kvattn.ops.attend_int8`` replaced by
+    ``wrap(attend_int8)`` (``paged_attend`` looks it up on every call)."""
+    from repro_torch.kernels.kvattn import ops as kv_ops
+
+    orig = kv_ops.attend_int8
+    kv_ops.attend_int8 = wrap(orig)
+    try:
+        yield
+    finally:
+        kv_ops.attend_int8 = orig
+
+
+def _shadowed(log: dict):
+    """attend_int8 that also runs the plain version on the same inputs (the
+    engine's own pool) and logs the worst error against the kernel
+    tolerance."""
+    def wrap(orig):
+        def attend(*a, **kw):
+            out = orig(*a, **kw)
+            want = orig(*a, **{**kw, "backend": "torch"})
+            err = float((out - want).abs().max())
+            log["calls"] += 1
+            log["max_abs_err"] = max(log["max_abs_err"], err)
+            log["worst_err_over_tol"] = max(log["worst_err_over_tol"],
+                                            err / tolerance(want))
+            return out
+        return attend
+    return wrap
+
+
+def _newest_key_dropped(orig):
+    """A wrong kernel, to read what the logits limit catches: the query
+    does not see the key it has just appended (an off-by-one mask)."""
+    return lambda q, k8, v8, ks, vs, kpos, cur, **kw: orig(
+        q, k8, v8, ks, vs, kpos, cur - 1, **kw)
+
+
+def _engine(serve, model, art, args, streams, backend, sequential=False, **over):
+    """One engine over ``art`` serving ``streams`` (staggered, or one
+    request at a time), kernels or plain versions, logits recorded;
+    ``over`` replaces EngineConfig fields."""
+    from repro_torch.serve_engine import ServeEngine
+
+    hook = copy.copy(art.hook())  # NO_QUANT is a shared singleton
+    hook.packed_backend = backend
+    eng = ServeEngine(model, art.params, serve.engine_config(
+        args, art.manifest, backend=backend, record_logits=True, **over),
+        quant=hook)
+    if sequential:
+        for uid, (_, prompt, max_new) in enumerate(streams):
+            eng.submit(prompt, max_new, uid=uid)
+            eng.run()
+    else:
+        serve.drive_engine(eng, streams)
+    eng.assert_no_leaks()
+    return eng
+
+
+def _tokens(eng) -> dict:
+    return {u: list(r.generated) for u, r in eng.requests.items()}
+
+
+def _logits(eng) -> dict:
+    import numpy as np
+
+    return {u: np.stack(r.logits) for u, r in eng.requests.items()}
+
+
+def _agree(a, b, uids=None) -> dict:
+    """Hold engine ``a``'s recorded logits against ``b``'s, stream by
+    stream, over the steps whose token histories agree: up to and including
+    the first step where the greedy tokens differ. At that step both chose
+    on the same history, so the two top logits of either lie within twice
+    the logits' difference: a token that differs is a near tie that the
+    logits check bounds. Returns the max abs difference, ``b``'s max
+    |logit|, the steps compared of all, and {uid: first differing step}."""
+    import numpy as np
+
+    la, lb, ta, tb = _logits(a), _logits(b), _tokens(a), _tokens(b)
+    uids = list(la) if uids is None else uids
+    out = {"max_abs_err": 0.0, "steps": 0, "of": 0, "diverged": {},
+           "max_abs": max(float(np.abs(x).max()) for x in lb.values())}
+    for u in uids:
+        if a.requests[u].state != "done" or b.requests[u].state != "done":
+            fail(f"stream {u} did not finish: {a.requests[u].state}, "
+                 f"{b.requests[u].state}")
+        if not np.isfinite(la[u]).all():
+            fail(f"non-finite logits for stream {u}")
+        n = len(tb[u])
+        d = next((i for i in range(n) if ta[u][i] != tb[u][i]), n)
+        if d < n:
+            out["diverged"][u] = d
+        upto = min(d + 1, n)
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float(np.abs(la[u][:upto] - lb[u][:upto]).max()))
+        out["steps"] += upto
+        out["of"] += n
+    return out
+
+
+def _say(what: str, r: dict) -> str:
+    return (f"{what}: logits max abs err {r['max_abs_err']:.3e} "
+            f"({r['max_abs_err'] / r['max_abs']:.3e} of max |logit| "
+            f"{r['max_abs']:.3e}) over {r['steps']} of {r['of']} steps; "
+            f"tokens part in {len(r['diverged'])} streams (first differing "
+            f"steps {sorted(r['diverged'].values())})")
+
+
+def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
+    """The serve engine at full width through the main entry point, then
+    the same schedule through kernels vs plain versions (int8 and float32
+    pools, and a wrong kernel), staggered vs sequential, and under page
+    pressure."""
+    import numpy as np
+
+    from repro_torch.deploy import QuantizedArtifact
+    from repro_torch.models import get_model
+
+    cfg, model = get_model("brecq_lm_100m")
+    params = engine_params(torch, model)
+    art_dir = workdir / "engine_w4"
+    main_args = [*ENGINE_ARGS, "--save-artifact", str(art_dir)]
+    out, launches = _counted(kernels, lambda: serve.main(main_args, params=params))
+    m = out["metrics"]
+    print(f"[engine] main path: kernel launches {launches}")
+    if min(launches.values()) == 0:
+        fail(f"the engine's main path did not launch every kernel: {launches}")
+    if set(out["states"].values()) != {"done"}:
+        fail(f"engine requests did not all finish: {out['states']}")
+    distinct = sorted(len(set(t)) for t in out["tokens"].values())
+    print(f"[engine] distinct tokens per stream: {distinct}")
+    if np.median(distinct) < MIN_DISTINCT_TOKENS:
+        fail(f"the streams' greedy tokens hardly vary ({distinct}): the token "
+             f"checks below would be blind")
+
+    args = serve.parse_args(main_args)
+    art = QuantizedArtifact.load(str(art_dir)).to("cuda")
+    streams = serve.engine_streams(args, cfg.vocab)
+
+    # kernels vs plain versions, int8 pool; every kv_decode call of the
+    # kernel run is also held against its plain version on its own inputs
+    shadow = {"calls": 0, "max_abs_err": 0.0, "worst_err_over_tol": 0.0}
+    with _attend_wrapped(_shadowed(shadow)):
+        kern = _engine(serve, model, art, args, streams, "cuda")
+    if _tokens(kern) != out["tokens"]:
+        fail("the engine replay through the kernels gave other tokens than "
+             "the main path")
+    print(f"[engine] kv_decode vs plain on the engine's inputs: "
+          f"{shadow['calls']} calls, max abs err {shadow['max_abs_err']:.3e}, "
+          f"worst err/tol {shadow['worst_err_over_tol']:.3f}")
+    if shadow["calls"] == 0 or shadow["worst_err_over_tol"] > 1.0:
+        fail(f"kv_decode vs its plain version on the engine's own pool: {shadow}")
+    vs_plain = _agree(kern, _engine(serve, model, art, args, streams, "torch"))
+    print(f"[engine] {_say('kernel vs plain path, int8 pool', vs_plain)}")
+
+    # control: float32 pools hold no codes to flip
+    vs_plain32 = _agree(
+        _engine(serve, model, art, args, streams, "cuda", kv_dtype="float32"),
+        _engine(serve, model, art, args, streams, "torch", kv_dtype="float32"))
+    print(f"[engine] {_say('kernel vs plain path, float32 pool', vs_plain32)}")
+
+    # what a wrong kernel gives: the limit must tell it from code flips
+    with _attend_wrapped(_newest_key_dropped):
+        wrong = _agree(_engine(serve, model, art, args, streams, "cuda"), kern)
+    print(f"[engine] {_say('a kv_decode that drops the newest key', wrong)}")
+
+    four = streams[:4]
+    stag = _engine(serve, model, art, args, four, "cuda")
+    seq = _engine(serve, model, art, args, four, "cuda", sequential=True)
+    ls, lq = _logits(stag), _logits(seq)
+    if not (all(np.array_equal(ls[u], lq[u]) for u in ls)
+            and _tokens(stag) == _tokens(seq)):
+        fail("staggered and sequential serving of 4 streams differ on the card")
+    print(f"[engine] staggered == sequential for 4 streams: tokens and logits "
+          f"bit-identical ({stag.metrics()['ticks']} vs "
+          f"{seq.metrics()['ticks']} ticks)")
+
+    pargs = serve.parse_args([*main_args, "--overcommit", "prompt",
+                              "--num-pages", str(PRESSURE_PAGES)])
+    press = _engine(serve, model, art, pargs, streams, "cuda")
+    pm = press.metrics()
+    hit = [u for u, r in press.requests.items() if r.preemptions]
+    lp, lk = _logits(press), _logits(kern)
+    same = [u for u in lp if u not in hit and np.array_equal(lp[u], lk[u])
+            and _tokens(press)[u] == _tokens(kern)[u]]
+    resumed = _agree(press, kern, hit)
+    print(f"[engine] pressured ({PRESSURE_PAGES} pages, overcommit prompt): "
+          f"{pm['preemptions']} preemptions of {len(hit)} streams, "
+          f"{pm['replay_prefill_chunks']} replay chunks; {len(same)} of "
+          f"{len(lp) - len(hit)} other streams bit-identical to the unpressured "
+          f"run; {_say('preempted streams vs the unpressured run', resumed)}")
+
+    tol = ENGINE_LOGIT_TOL * vs_plain["max_abs"]
+    for what, r, limit in (("kernel vs plain path, int8 pool", vs_plain, tol),
+                           ("preempted streams vs the unpressured run", resumed, tol),
+                           ("kernel vs plain path, float32 pool", vs_plain32,
+                            1e-3 * vs_plain32["max_abs"])):
+        if r["max_abs_err"] > limit:
+            fail(f"engine logits, {what}: {r['max_abs_err']:.3e} > {limit:.3e}")
+        if r["steps"] < MIN_STEPS_SHARED * r["of"]:
+            fail(f"engine, {what}: only {r['steps']} of {r['of']} steps on a "
+                 f"shared token history")
+    if wrong["max_abs_err"] <= tol:
+        fail(f"the logits limit {tol:.3e} does not catch a wrong kernel "
+             f"({wrong['max_abs_err']:.3e})")
+    if pm["preemptions"] < 1:
+        fail(f"{PRESSURE_PAGES} pages forced no preemption")
+    if len(same) != len(lp) - len(hit):
+        fail("a stream that was never preempted served other tokens or logits "
+             "under pressure")
+    print(f"[engine] sustained {m['sustained_tok_s']:.1f} tok/s, mean slot "
+          f"occupancy {m['mean_slot_occupancy']:.3f}, resident KV "
+          f"{m['mean_resident_kv_bytes_per_stream']:.0f} B/stream, "
+          f"{m['bytes_per_page']} B/page, kv_decode launches "
+          f"{launches['kv_decode']}")
+    return launches, {"metrics": m, "launches": launches,
+                      "distinct_tokens_per_stream": distinct,
+                      "kv_decode_on_engine_inputs": shadow,
+                      "kernel_vs_plain_int8": vs_plain,
+                      "kernel_vs_plain_float32": vs_plain32,
+                      "wrong_kernel_vs_kernel": wrong,
+                      "preempted_vs_unpressured": resumed,
+                      "logits_limit": tol, "pressure_metrics": pm,
+                      "preempted_uids": hit}
+
+
+def kernel_line(errs, rows, kv_err, kv_timed, launches) -> dict:
+    """One entry per kernel, ``launches`` from the engine's main path and
+    every time at that path's shapes. For qgemv/qmatmul: one layer's 7
+    matmuls at the engine's W4 per-channel setting (the decode step's M=8
+    for qgemv, the prefill chunk's M=32 for qmatmul), summed over the
+    layer's shapes. For kv_decode: one call at the engine's decode shape."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
-            "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 512)}
+            "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
     for name, (replaces, m) in meta.items():
         sel = [r for r in rows if r["kernel"] == name and r["bits"] == 4
@@ -303,6 +701,15 @@ def kernel_line(errs, rows, launches) -> dict:
             "library_ms": tot["library_ms"],
             "shapes": f"one layer: 4x768x768, 2x768x2048, 1x2048x768; W4 "
                       f"per-channel; M={m}"})
+    t = kv_timed["engine"]
+    out.append({
+        "name": "kv_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/kvattn/csrc/kvattn.cu",
+        "replaces": "src/repro/kernels/kvattn/kernel.py:70",
+        "launches": launches["kv_decode"], "max_abs_err": kv_err,
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "shapes": f"B={t['B']} H={t['H']} K={t['K']} hd={t['hd']} S={t['S']}"})
     return {"kernels": out}
 
 
@@ -323,17 +730,22 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.deploy import pack
+    from repro_torch.kernels.kvattn import kernel as kv_kernel
+    from repro_torch.kernels.kvattn import ref as kv_ref
     from repro_torch.kernels.qmatmul import kernel, ops, ref
     from repro_torch.launch import serve
 
     t_start = time.perf_counter()
-    build = phase_build(kernel)
+    kernels = {"qmatmul": kernel, "kvattn": kv_kernel}
+    build = phase_build(kernels)
     errs, rows = phase_parity(torch, kernel, ref, pack)
+    kv_err, kv_timed = phase_kv(torch, kv_kernel, kv_ref)
     host = phase_host(torch, ops, pack)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, served = phase_serve(torch, kernel, ops, serve, Path(tmp))
+        _, served = phase_serve(torch, kernel, ops, serve, Path(tmp))
+        launches, engine = phase_engine(torch, serve, kernels, Path(tmp))
 
-    line = kernel_line(errs, rows, launches)
+    line = kernel_line(errs, rows, kv_err, kv_timed, launches)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -343,7 +755,8 @@ def main(argv=None) -> None:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"device": device, "nvidia_smi": smi, "build": build,
-             "timings": rows, "host": host, "serve": served, "kernels": line["kernels"],
+             "timings": rows, "kv_timings": kv_timed, "host": host,
+             "serve": served, "engine": engine, "kernels": line["kernels"],
              "wall_s": time.perf_counter() - t_start}, indent=1))
     print(json.dumps(line))
     print(smi)

@@ -1,5 +1,7 @@
-"""Hand-written Hopper kernels for the packed deployment path.
+"""Hand-written Hopper kernels of the serving path, built by ``build.py``.
 
   qmatmul/   packed int2/int4/int8 weight dequant-matmul: the decode GEMV
              (``qgemv``) and the prefill GEMM (``qmatmul``), CUDA C++
+  kvattn/    int8-KV decode attention of the serve engine (``kv_decode``),
+             CUDA C++
 """

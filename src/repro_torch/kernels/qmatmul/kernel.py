@@ -16,9 +16,10 @@ Pallas TPU kernels (``src/repro/kernels/qmatmul/kernel.py``):
 
 Both mask ragged M and N, so the TPU-only padding of ``ops._qmm_2d`` does
 not exist here. The library is compiled with ``nvcc`` for ``sm_90a`` at
-first use, from the sources beside this file, into ``build/kernels/`` at
-the repository root (keyed by a hash of the sources and flags), and bound
-through ``ctypes``. Nothing is built when this module is imported.
+first use, from the sources beside this file, through ``kernels/build.py``
+(``build/kernels/`` at the repository root, keyed by a hash of the sources
+and flags), and bound through ``ctypes``. Nothing is built when this
+module is imported.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output, launches on the current stream, raises if the launch was refused
@@ -26,22 +27,15 @@ and counts the launch in :data:`LAUNCHES`.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import hashlib
-import os
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from ..build import build_dir, build_library, on_device  # noqa: F401 (build_dir)
 from ..spec import describe_qgemv, describe_qmatmul
 
-_CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "qmatmul.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = (Path(__file__).resolve().parent / "csrc" / "qmatmul.cu",)
 
 # Kernel launches since the last reset_launches(): one per launch that the
 # CUDA runtime accepted.
@@ -59,44 +53,12 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def build_dir() -> Path:
-    """``build/kernels`` at the repository root (listed in .gitignore)."""
-    return Path(__file__).resolve().parents[4] / "build" / "kernels"
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME  # CUDA_HOME, PATH, default prefix
-
-    nvcc = Path(CUDA_HOME or "") / "bin" / "nvcc"
-    if not CUDA_HOME or not nvcc.exists():
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
-                           "to build the qmatmul kernels")
-    return str(nvcc)
-
-
 def load_library() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        h.update(src.name.encode())
-        h.update(src.read_bytes())
-    lib_path = build_dir() / f"libqmatmul_{h.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
-    built, log = False, ""
-    if not lib_path.exists():
-        lib_path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed with exit code {res.returncode}: "
-                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-        os.replace(tmp, lib_path)
-        built, log = True, res.stderr
-    lib = ctypes.CDLL(str(lib_path))
+    lib, info = build_library("qmatmul", SOURCES)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.qgemv_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
     lib.qgemv_launch.restype = i32
@@ -104,8 +66,7 @@ def load_library() -> ctypes.CDLL:
     lib.qmatmul_launch.restype = i32
     lib.qmm_error_string.argtypes = [i32]
     lib.qmm_error_string.restype = ctypes.c_char_p
-    BUILD_INFO.update(path=str(lib_path), built=built,
-                      seconds=time.perf_counter() - t0, ptxas=log)
+    BUILD_INFO.update(info)
     _LIB = lib
     return lib
 
@@ -138,13 +99,6 @@ def _vec(w_packed: torch.Tensor, n: int) -> int:
     return int(n % 4 == 0 and w_packed.data_ptr() % 4 == 0)
 
 
-def _on_device(dev: torch.device):
-    """Make ``dev`` current for the launch, unless it already is."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(dev)
-
-
 def _launched(lib, name: str, err: int) -> None:
     if err != 0:
         msg = lib.qmm_error_string(err).decode()
@@ -162,7 +116,7 @@ def qgemv(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
     lib = load_library()
     x = _aligned(x)
     out = torch.empty((sp["M"], sp["N"]), dtype=torch.float32, device=x.device)
-    with _on_device(x.device):
+    with on_device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.qgemv_launch(x.data_ptr(), w_packed.data_ptr(),
                                scales.data_ptr(), out.data_ptr(), sp["M"],
@@ -182,7 +136,7 @@ def qmatmul(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
     lib = load_library()
     x = _aligned(x)
     out = torch.empty((sp["M"], sp["N"]), dtype=torch.float32, device=x.device)
-    with _on_device(x.device):
+    with on_device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.qmatmul_launch(x.data_ptr(), w_packed.data_ptr(),
                                  scales.data_ptr(), out.data_ptr(), sp["M"],

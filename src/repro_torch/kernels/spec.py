@@ -1,17 +1,24 @@
-"""Shape contracts of the packed matmul kernels, with typed errors.
+"""Shape contracts of the CUDA kernels, with typed errors.
 
 The port of the JAX package's ``repro.kernels.spec`` shape and
 divisibility checks. The TPU's VMEM budget and block divisibility do not
-carry over: the CUDA kernels mask ragged M and N themselves. What stays
-is the packing contract (K = packed rows x values per byte, scales span
-N, each scale group a whole number of packed rows) and the decode
-kernel's row limit.
+carry over: the CUDA kernels mask ragged M and N, and a ragged cache
+length S, themselves. What stays is the packing contract (K = packed rows
+x values per byte, scales span N, each scale group a whole number of
+packed rows), the GQA grouping of ``kv_decode`` (H % K == 0), and the
+limits the CUDA kernels really have (decode rows, head dim, group size).
 """
 from __future__ import annotations
 
 # The decode kernel keeps one f32 accumulator per batch row and column in
 # registers; it takes at most this many rows.
 QGEMV_M_MAX = 8
+
+# kv_decode keeps the G = H/K query rows of one (batch, kv-head) and their
+# f32 accumulators in one block: at most this many rows of at most
+# KV_HD_MAX values, read in 16-byte vectors of int8 codes (hd % 16 == 0).
+KV_G_MAX = 16
+KV_HD_MAX = 256
 
 
 class KernelSpecError(ValueError):
@@ -87,3 +94,37 @@ def describe_qgemv(x_shape, wp_shape, scales_shape, *, bits: int) -> dict:
         raise KernelSpecError(f"qgemv: M={sp['M']} rows; the decode kernel takes "
                               f"1..{QGEMV_M_MAX}")
     return sp
+
+
+def describe_kv_decode(q_shape, k8_shape, v8_shape=None, kscale_shape=None,
+                       vscale_shape=None, kpos_shape=None, cur_shape=None) -> dict:
+    """Validate a ``kv_decode`` (int8-KV decode attention) launch: q (B, H,
+    hd) over int8 caches (B, S, K, hd) with scales (B, S, K), kpos (B, S)
+    and cur (B,); the shapes given beyond q and k8 are checked against
+    them. Any S works (the kernel masks the ragged tail)."""
+    name = "kv_decode"
+    if len(q_shape) != 3 or len(k8_shape) != 4:
+        raise KernelSpecError(f"{name}: q {tuple(q_shape)} must be (B, H, hd) and "
+                              f"the cache {tuple(k8_shape)} (B, S, K, hd)")
+    B, H, hd = q_shape
+    S, K = k8_shape[1], k8_shape[2]
+    _check(K > 0 and H % K == 0, name,
+           f"query heads H={H} not divisible into kv heads K={K} "
+           f"(q {tuple(q_shape)}, cache {tuple(k8_shape)})")
+    G = H // K
+    _check(tuple(k8_shape) == (B, S, K, hd), name,
+           f"cache {tuple(k8_shape)} does not match q {tuple(q_shape)}")
+    _check(B >= 1 and S >= 1, name, f"empty launch: q {tuple(q_shape)}, "
+           f"cache {tuple(k8_shape)}")
+    _check(hd % 16 == 0 and 16 <= hd <= KV_HD_MAX, name,
+           f"head dim hd={hd} must be a multiple of 16 in 16..{KV_HD_MAX}")
+    _check(G <= KV_G_MAX, name,
+           f"G = H/K = {G} query rows per kv head; the kernel takes at most "
+           f"{KV_G_MAX} (q {tuple(q_shape)}, cache {tuple(k8_shape)})")
+    for what, got, want in (("v8", v8_shape, (B, S, K, hd)),
+                            ("kscale", kscale_shape, (B, S, K)),
+                            ("vscale", vscale_shape, (B, S, K)),
+                            ("kpos", kpos_shape, (B, S)), ("cur", cur_shape, (B,))):
+        _check(got is None or tuple(got) == want, name,
+               f"{what} {tuple(got or ())} should be {want}")
+    return {"B": B, "H": H, "K": K, "G": G, "S": S, "hd": hd}

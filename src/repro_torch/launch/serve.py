@@ -1,6 +1,6 @@
 """Batched serving entry point: prefill + greedy decode from a packed artifact.
 
-The port of the JAX package's ``repro.launch.serve`` fixed-batch path:
+The port of the JAX package's ``repro.launch.serve``:
   1. resolve weights — FP params, a saved :class:`QuantizedArtifact`
      (``--artifact DIR``), or a fresh RTN artifact (``--quant BITS``,
      which is saved and re-loaded with verification so the served bytes
@@ -8,14 +8,20 @@ The port of the JAX package's ``repro.launch.serve`` fixed-batch path:
   2. prefill the prompt batch, 3. decode N tokens greedily,
   4. report artifact bytes vs FP, tokens/s and which qmm tiers fired.
 
+``--engine`` serves synthetic streams with staggered arrivals through the
+continuous-batching engine (``repro_torch.serve_engine``) over a paged KV
+pool instead; ``--batch`` is then the slot count.
+
 Packed weights stay int codes on the device end to end: every linear runs
 through ``QuantHook.packed_matmul`` -> ``qmm``, which launches the CUDA
-``qgemv`` (decode) and ``qmatmul`` (prefill) kernels for CUDA tensors.
+``qgemv`` (decode) and ``qmatmul`` (prefill) kernels for CUDA tensors; the
+engine's int8 pool is read by the CUDA ``kv_decode`` kernel.
 
 Runs on the GPU by default; ``--device cpu`` runs the plain PyTorch path
 on the host. Usage:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --quant 4
+    PYTHONPATH=src python -m repro_torch.launch.serve --quant 4 --engine
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import argparse
 import copy
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,6 +69,46 @@ def parse_args(argv=None):
                         "shape")
     p.add_argument("--no-verify", action="store_true",
                    help="skip artifact schema/checksum verification at load")
+    p.add_argument("--engine", action="store_true",
+                   help="serve through the continuous-batching engine "
+                        "(repro_torch.serve_engine) instead of the fixed-batch "
+                        "harness; --batch becomes the slot count")
+    p.add_argument("--streams", type=int, default=None,
+                   help="number of synthetic request streams for --engine "
+                        "(staggered arrivals, mixed lengths; default: "
+                        "2x the slot count)")
+    p.add_argument("--kv-dtype", default=None,
+                   choices=["int8", "float16", "bfloat16", "float32"],
+                   help="engine KV pool dtype (default: artifact manifest "
+                        "kv_dtype, else int8)")
+    p.add_argument("--page-size", type=int, default=None,
+                   help="engine KV page size in tokens (default: manifest "
+                        "kv_page_size, else 16)")
+    p.add_argument("--prefill-chunk", type=int, default=32,
+                   help="engine prefill chunk length (tokens per tick)")
+    p.add_argument("--num-pages", type=int, default=None,
+                   help="engine KV pool size in pages incl. the sink "
+                        "(default: worst-case sizing — every slot can hold "
+                        "a full-length stream); set it below that to create "
+                        "page pressure")
+    p.add_argument("--overcommit", default="none",
+                   choices=["none", "prompt"],
+                   help="engine admission policy: 'none' reserves the "
+                        "worst-case page need up front (reference); "
+                        "'prompt' reserves only the prompt's pages plus a "
+                        "small headroom and preempts the newest / lowest-"
+                        "priority stream on pool exhaustion (bit-exact "
+                        "re-prefill resume)")
+    p.add_argument("--deadline-ticks", type=int, default=None,
+                   help="per-request relative deadline for --engine: a "
+                        "stream not finished within this many ticks of "
+                        "submission moves to the terminal 'expired' state "
+                        "and its pages are reclaimed")
+    p.add_argument("--drain-on-sigterm", action="store_true",
+                   help="install GracefulShutdown for the --engine loop: "
+                        "SIGTERM/SIGINT stops admission, finishes in-flight "
+                        "streams and reports per-request statuses instead "
+                        "of killing them dead")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None,
                    help="torch device (default: cuda; raises without a GPU)")
@@ -171,6 +218,8 @@ def main(argv=None, params=None):
     """Serve once; returns a dict with the generated ``tokens`` (B,
     gen_len), the packed run's ``stats`` (the FP run's when no artifact),
     ``fp_stats`` when the FP pass ran, and ``artifact_bytes``/``fp_bytes``.
+    With ``--engine``: the engine's ``metrics``, ``tokens`` as ``{uid:
+    [generated ids]}`` and the requests' final ``states``.
 
     ``params`` (optional) are FP weights to serve instead of random ones
     drawn from ``--seed``; they are moved to the serving device.
@@ -216,7 +265,116 @@ def main(argv=None, params=None):
             tmp_dir.cleanup()
 
 
+def engine_config(args, manifest: dict, **over):
+    """The :class:`EngineConfig` that ``--engine`` serves with: the KV
+    dtype and page size from the flags, else the artifact's manifest;
+    ``--batch`` slots; the pool sized for the worst case unless
+    ``--num-pages`` says otherwise. ``over`` replaces fields."""
+    from ..serve_engine import EngineConfig
+
+    page_size = args.page_size or int(manifest.get("kv_page_size") or 16)
+    max_len = args.prompt_len + args.gen_len
+    pages_per = -(-max_len // page_size)
+    fields = dict(
+        num_slots=args.batch, page_size=page_size,
+        num_pages=args.num_pages or 1 + args.batch * pages_per,
+        max_len=max_len,
+        prefill_chunk=min(args.prefill_chunk, max(args.prompt_len, 1)),
+        kv_dtype=args.kv_dtype or manifest.get("kv_dtype") or "int8",
+        overcommit=args.overcommit)
+    fields.update(over)
+    return EngineConfig(**fields)
+
+
+def engine_streams(args, vocab: int) -> list:
+    """The synthetic streams of ``--engine``, from ``--seed``: ``--streams``
+    (default 2x the slots) of ``(arrival tick, prompt, max_new)``, sorted
+    by arrival, with prompts of prompt-len/2..prompt-len tokens and
+    generations of gen-len/2..gen-len (the JAX CLI's draws)."""
+    streams = args.streams or 2 * args.batch
+    rng = np.random.default_rng(args.seed)
+    corpus = Corpus(CorpusConfig(vocab=vocab))
+    arrivals = sorted(int(a) for a in rng.integers(0, 4 * streams, streams))
+    plens = rng.integers(max(args.prompt_len // 2, 1), args.prompt_len + 1,
+                         streams)
+    gens = rng.integers(max(args.gen_len // 2, 1), args.gen_len + 1, streams)
+    return [(arrivals[i], corpus.sample(1, int(plens[i]), seed=args.seed + i)[0],
+             int(gens[i])) for i in range(streams)]
+
+
+def drive_engine(eng, streams: list, *, deadline_ticks: Optional[int] = None,
+                 shutdown=None) -> None:
+    """Submit each stream on its arrival tick and tick until all are
+    served; with ``shutdown`` (a ``GracefulShutdown``), drain once it is
+    requested."""
+    nxt = 0
+    while nxt < len(streams) or eng.pending():
+        if shutdown is not None and shutdown.requested:
+            statuses = eng.drain(finish=True)
+            counts: dict = {}
+            for st in statuses.values():
+                counts[st] = counts.get(st, 0) + 1
+            print(f"[drain] signal received: admission stopped, "
+                  f"in-flight work settled; request statuses {counts} "
+                  f"({len(streams) - nxt} never submitted)")
+            break
+        while nxt < len(streams) and streams[nxt][0] <= eng.tick:
+            eng.submit(streams[nxt][1], streams[nxt][2],
+                       deadline_ticks=deadline_ticks)
+            nxt += 1
+        eng.step()
+
+
+def _serve_engine(args, cfg, model, params, artifact):
+    """Continuous-batching mode: synthetic streams with staggered
+    arrivals and mixed prompt/gen lengths through the serve engine."""
+    from ..serve_engine import ServeEngine
+    from .watchdog import GracefulShutdown
+
+    ecfg = engine_config(args, artifact.manifest if artifact is not None else {})
+    hook = artifact.hook() if artifact is not None else NO_QUANT
+    if args.packed_backend != "auto":
+        hook = copy.copy(hook)  # NO_QUANT is a shared singleton
+        hook.packed_backend = args.packed_backend
+    weights = artifact.params if artifact is not None else params
+    eng = ServeEngine(model, weights, ecfg, quant=hook)
+    t_compile = eng.compile()
+    streams = engine_streams(args, cfg.vocab)
+    gs = GracefulShutdown() if args.drain_on_sigterm else None
+    try:
+        drive_engine(eng, streams, deadline_ticks=args.deadline_ticks, shutdown=gs)
+    finally:
+        if gs is not None:
+            gs.restore()
+    eng.assert_no_leaks()
+    m = eng.metrics()
+    pressure = (f"; preempt {m['preemptions']} expired {m['expired']} "
+                f"failed {m['failed']} stragglers {m['stragglers']}"
+                if (m["preemptions"] or m["expired"] or m["failed"]
+                    or m["stragglers"]) else "")
+    print(f"[engine {ecfg.kv_dtype}] compile {t_compile:.2f}s; {len(streams)} "
+          f"streams over {ecfg.num_slots} slots ({ecfg.num_pages} pages, "
+          f"overcommit={ecfg.overcommit}): {m['tokens_generated']} tokens in "
+          f"{m['wall_s']:.2f}s ({m['sustained_tok_s']:.1f} tok/s sustained); "
+          f"occupancy {m['mean_slot_occupancy']:.2f}; resident KV "
+          f"{m['mean_resident_kv_bytes_per_stream']/1e3:.1f}KB/stream "
+          f"(page {ecfg.page_size} tok, {m['bytes_per_page']/1e3:.1f}KB)"
+          f"{pressure}")
+    return {"metrics": m,
+            "tokens": {u: list(r.generated) for u, r in eng.requests.items()},
+            "states": {u: r.state for u, r in eng.requests.items()}}
+
+
 def _serve(args, cfg, model, params, artifact, fp_bytes, device):
+    if args.engine:
+        if artifact is not None:
+            print(f"weights resident as packed int codes: {fp_bytes/1e6:.1f}MB "
+                  f"fp32 -> {artifact.nbytes()/1e6:.1f}MB packed")
+        out = _serve_engine(args, cfg, model, params, artifact)
+        out["fp_bytes"] = fp_bytes
+        if artifact is not None:
+            out["artifact_bytes"] = artifact.nbytes()
+        return out
     corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
     prompts = torch.from_numpy(corpus.sample(args.batch, args.prompt_len, seed=7))
     batch = {"tokens": prompts.to(device)}

@@ -2,10 +2,10 @@
 
 A single :class:`AttnSpec` covers the dense family's attention variants.
 Caches are ring buffers for windowed layers and linear buffers otherwise.
-The cache is updated in place (the JAX package donates it to the jitted
-step instead); ``prefill``/``decode`` return it for symmetry. The paged
-cache comes with the serve-engine slice, cross-attention with the VLM
-and encoder-decoder families.
+The cache, dense or paged, is updated in place (the JAX package donates
+it to the jitted step instead); ``prefill``/``decode`` return it for
+symmetry. Cross-attention comes with the VLM and encoder-decoder
+families.
 """
 from __future__ import annotations
 
@@ -111,15 +111,25 @@ def prefill(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, cache):
 def decode(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, cache):
     """Cached decode: append C new tokens to the cache (in place), attend
     over it. ``ctx.positions`` is (B, C) with the tokens' absolute
-    positions."""
-    if "k_pages" in cache:
-        raise NotImplementedError(
-            "paged KV caches come with the serve-engine slice of the port")
+    positions: C = 1 for plain decode, C > 1 for a chunked-prefill step.
+    ``cache`` is the dense ring buffer from :func:`init_cache` or one
+    layer's paged-pool slice (serve engine), dispatched through
+    ``cm.is_paged``; the paged path reads the block tables from
+    ``ctx.extras["paged"]``."""
     B, C = x.shape[:2]
     q, k, v = _project_qkv(ctx, p, spec, x)
     if spec.use_rope:
         q = cm.apply_rope(q, ctx.positions, spec.rope_theta)
         k = cm.apply_rope(k, ctx.positions, spec.rope_theta)
+    if cm.is_paged(cache):
+        pg = ctx.extras["paged"]
+        cm.paged_append(cache, k, v, pg["block_tables"], ctx.positions,
+                        pg["page_size"])
+        out = cm.paged_attend(q, cache, pg["block_tables"], ctx.positions,
+                              pg["page_size"], window=spec.window,
+                              backend=pg.get("backend", "auto"))
+        out = out.reshape(B, C, spec.n_heads * spec.head_dim)
+        return cm.dense(ctx, p, "wo", out), cache
     slots = cache["k"].shape[1]
     pos = ctx.positions.to(torch.int32)  # (B, C)
     slot = (pos % slots).long()

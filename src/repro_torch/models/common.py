@@ -10,8 +10,8 @@ Conventions follow the JAX package's ``repro.models.common``:
   and runs through ``QuantHook.packed_matmul`` -> ``qmm``.
 * Attention is written out (no fused SDPA): it reproduces the JAX math,
   including the online softmax of :func:`chunked_attention`.
-
-The paged-KV section of the JAX module comes with the serve-engine slice.
+* The paged KV cache of the serve engine (last section) is written in
+  place: :func:`paged_append` scatters into the pool tensors it is given.
 """
 from __future__ import annotations
 
@@ -333,3 +333,160 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bckgs,bskd->bckgd", p, v_cache)
     return out.reshape(B, C, H, hd)
+
+
+# ---------------------------------------------------------------------------
+# paged KV cache (serve engine)
+# ---------------------------------------------------------------------------
+#
+# The serve engine stores KV in a global page pool per attention layer
+# instead of one dense (B, S, K, hd) buffer per stream. A *page* holds
+# ``page_size`` consecutive token slots for every kv head; a stream owns
+# an ordered list of pages (its *block table* row, shared by all layers
+# since every layer caches the same token sequence). Token at absolute
+# position ``t`` always lives at row ``t`` of its stream's gathered view
+# (page ``t // page_size``, offset ``t % page_size``), so masks reduce to
+# plain position comparisons and batched serving is independent of which
+# physical pages a stream happened to get.
+#
+# ``kv_dtype='int8'`` stores codes + per-(token, head) scales from
+# ``kernels.kvattn.quantize_kv`` and decodes single-token steps through
+# ``kernels.kvattn.attend_int8`` (the ``kv_decode`` kernel on the card);
+# float dtypes are the reference mode. Scales are stored float16, as in the
+# JAX package: the resident-bytes win is the point of int8 KV.
+
+PAGED_KV_DTYPES = ("int8", "float16", "bfloat16", "float32")
+_POOL_DTYPES = {"float16": torch.float16, "bfloat16": torch.bfloat16,
+                "float32": torch.float32}
+
+
+def init_paged_kv(num_pages: int, page_size: int, n_kv_heads: int,
+                  head_dim: int, kv_dtype: str = "int8", device=None) -> Params:
+    """One attention layer's share of the paged KV pool, zeroed on
+    ``device``. int8 pools carry float16 ``k_scale``/``v_scale`` pages
+    beside the code pages; float pools are just typed pages. Page 0 is the
+    engine's write sink and is never handed to a stream."""
+    if kv_dtype not in PAGED_KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r} not in {PAGED_KV_DTYPES}")
+    shape = (num_pages, page_size, n_kv_heads, head_dim)
+    if kv_dtype == "int8":
+        return {
+            "k_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v_pages": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:3], dtype=torch.float16, device=device),
+            "v_scale": torch.zeros(shape[:3], dtype=torch.float16, device=device),
+        }
+    dt = _POOL_DTYPES[kv_dtype]
+    return {"k_pages": torch.zeros(shape, dtype=dt, device=device),
+            "v_pages": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def is_paged(cache: Params) -> bool:
+    """A paged-pool cache node, as opposed to the dense ``{k, v, pos}``
+    ring buffer."""
+    return isinstance(cache, dict) and "k_pages" in cache
+
+
+def _page_rows(block_tables: torch.Tensor, positions: torch.Tensor,
+               page_size: int) -> torch.Tensor:
+    """Flat pool-row index for each (stream, position). Writes with no
+    real page (unallocated block-table entries (-1), positions past the
+    table's capacity) land on page 0, the engine's write sink."""
+    mp = block_tables.shape[1]
+    pidx = positions // page_size
+    page_ids = torch.gather(block_tables, 1, pidx.clamp(0, mp - 1).long())
+    page_ids = torch.where(pidx < mp, page_ids, -1)
+    return page_ids.clamp_min(0) * page_size + positions % page_size
+
+
+def _flat(pool: torch.Tensor) -> torch.Tensor:
+    """(num_pages, page_size, ...) pool as (rows, ...): a view, so writes
+    through it land in the pool."""
+    return pool.view(pool.shape[0] * pool.shape[1], *pool.shape[2:])
+
+
+def paged_append(cache: Params, k: torch.Tensor, v: torch.Tensor,
+                 block_tables: torch.Tensor, positions: torch.Tensor,
+                 page_size: int) -> Params:
+    """Write C new tokens' K/V into the page pool, in place.
+
+    k, v: (B, C, K, hd) float; block_tables (B, max_pages) int32 (-1 =
+    unallocated); positions (B, C) absolute token positions. int8 pools
+    quantize through ``quantize_kv`` (f32 scales, stored float16).
+    Distinct streams own distinct pages; every inactive-slot write lands
+    on page 0, where the winner of duplicate writes is undefined and never
+    read (``paged_view`` masks page 0). Returns ``cache``.
+    """
+    B, C = positions.shape
+    rows = _page_rows(block_tables, positions, page_size).reshape(-1).long()
+
+    def scat(pool, vals):
+        _flat(pool)[rows] = vals.reshape(B * C, *vals.shape[2:]).to(pool.dtype)
+
+    if "k_scale" in cache:
+        from ..kernels.kvattn.ops import quantize_kv
+
+        k8, v8, ks, vs = quantize_kv(k, v)
+        for name, vals in (("k_pages", k8), ("v_pages", v8),
+                           ("k_scale", ks), ("v_scale", vs)):
+            scat(cache[name], vals)
+    else:
+        scat(cache["k_pages"], k)
+        scat(cache["v_pages"], v)
+    return cache
+
+
+def paged_view(cache: Params, block_tables: torch.Tensor, page_size: int):
+    """Gather a dense per-stream view of the pool.
+
+    Returns ``(gather, kpos)``: ``gather(pool)`` -> (B, S_cap, K, hd) with
+    token ``t`` at row ``t`` (S_cap = max_pages * page_size), and ``kpos``
+    (B, S_cap) int32: the row's token position where the row's page is
+    allocated, -1 elsewhere (rows of an allocated page beyond the stream's
+    written length are masked by the caller's ``<= cur`` check)."""
+    B, mp = block_tables.shape
+    s_cap = mp * page_size
+    offs = torch.arange(page_size, dtype=block_tables.dtype,
+                        device=block_tables.device)
+    rows = (block_tables.clamp_min(0)[..., None] * page_size + offs)
+    rows = rows.reshape(B, s_cap).long()
+
+    def gather(pool):
+        return _flat(pool)[rows]
+
+    allocated = (block_tables >= 0).repeat_interleave(page_size, dim=1)
+    iota = torch.arange(s_cap, dtype=torch.int32, device=block_tables.device)
+    kpos = torch.where(allocated, iota[None], -1)
+    return gather, kpos
+
+
+def paged_attend(q: torch.Tensor, cache: Params, block_tables: torch.Tensor,
+                 positions: torch.Tensor, page_size: int, *,
+                 window: Optional[int] = None,
+                 backend: str = "auto") -> torch.Tensor:
+    """Attention over a paged KV cache: the read half of the handle.
+
+    q: (B, C, H, hd); positions (B, C) absolute positions of the query
+    tokens (already appended). Single-token int8 decode goes through
+    ``attend_int8`` (``backend`` picks the kernel or the plain version);
+    chunked-prefill reads (C > 1) and float pools dequantize the gathered
+    view and share :func:`decode_attend`.
+    """
+    gather, kpos = paged_view(cache, block_tables, page_size)
+    if "k_scale" in cache:
+        k8, v8 = gather(cache["k_pages"]), gather(cache["v_pages"])
+        ks = gather(cache["k_scale"]).to(torch.float32)
+        vs = gather(cache["v_scale"]).to(torch.float32)
+        if q.shape[1] == 1:
+            from ..kernels.kvattn.ops import attend_int8
+
+            out = attend_int8(q[:, 0].contiguous(), k8, v8, ks, vs, kpos,
+                              positions[:, 0].contiguous(), window=window,
+                              backend=backend)
+            return out[:, None]
+        k = (k8.to(torch.float32) * ks[..., None]).to(q.dtype)
+        v = (v8.to(torch.float32) * vs[..., None]).to(q.dtype)
+        return decode_attend(q, k, v, kpos, positions, window=window)
+    k = gather(cache["k_pages"]).to(q.dtype)
+    v = gather(cache["v_pages"]).to(q.dtype)
+    return decode_attend(q, k, v, kpos, positions, window=window)

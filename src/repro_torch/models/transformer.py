@@ -197,6 +197,30 @@ class LM:
             cache[stack.name] = _stack_trees(layers)
         return cache
 
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         kv_dtype: str = "int8", device=None):
+        """Paged KV pools for the serve engine: one pool per attention
+        sub-layer, stacked along the layer dim like :meth:`init_cache`.
+        All layers share one block table (they cache the same token
+        sequence), so only the pools live here. Non-attention mixers have
+        no paged form and are rejected up front."""
+        cfg = self.cfg
+        cache = {}
+        for stack in self.stacks:
+            one = {}
+            for i, sub in enumerate(stack.subs):
+                if sub.mixer != "attn":
+                    raise ValueError(
+                        f"paged KV serving needs attention-only mixers; "
+                        f"stack {stack.name!r} sub {i} is {sub.mixer!r}")
+                spec = _attn_spec(cfg, sub)
+                one[f"sub{i}"] = {"attn": cm.init_paged_kv(
+                    num_pages, page_size, spec.n_kv_heads, spec.head_dim,
+                    kv_dtype, device)}
+            cache[stack.name] = tree_map(
+                lambda a, n=stack.n: a.expand(n, *a.shape).clone(), one)
+        return cache
+
     def _sub_step(self, ctx: Ctx, sub: SubLayer, idx: int, p, x, cache, step):
         cfg = self.cfg
         sc = ctx.scoped(f"sub{idx}")
@@ -232,7 +256,11 @@ class LM:
                     *, all_logits: bool = False):
         """Decode C tokens in one cached step (cache updated in place).
 
-        tokens (B, C); pos (B,) absolute position of ``tokens[:, 0]``.
+        tokens (B, C); pos (B,) absolute position of ``tokens[:, 0]``
+        (consecutive positions within the chunk). C = 1 is plain decode;
+        C > 1 is a chunked-prefill step through the same cached path.
+        ``cache`` is dense (:meth:`init_cache`) or paged
+        (:meth:`init_paged_cache`, with ``extras={"paged": ...}``).
         Returns last-position logits (B, V), or (B, C, V) with
         ``all_logits``.
         """

@@ -1,4 +1,5 @@
-"""The CUDA qmatmul kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels (qmatmul, kv_decode) against their plain PyTorch
+versions, on the card, and the serve engine's kernel path.
 
 The kernels have no CPU mode, so every test here is marked
 ``requires_cuda`` and skips without a GPU. This file imports neither JAX
@@ -13,6 +14,9 @@ import pytest
 import torch
 
 from repro_torch.core.quantizer import pack_int
+from repro_torch.kernels.kvattn import kernel as kv_kernel
+from repro_torch.kernels.kvattn import ops as kv_ops
+from repro_torch.kernels.kvattn.ref import kv_decode_ref
 from repro_torch.kernels.qmatmul import kernel, ops, ref
 
 pytestmark = pytest.mark.requires_cuda
@@ -108,3 +112,121 @@ def test_wrappers_reject_bad_operands(cuda):
         kernel.qgemv(x.double(), wp, s, bits=4)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.qmatmul(torch.cat([x] * 2, 1)[:, ::2], wp, s, bits=4)
+
+
+def kv_case(B, H, K, hd, S, device, *, seed=0, holes=False, empty_row=False):
+    """int8 K/V from quantize_kv of random f32 K/V; kpos = arange(S) with
+    optional -1 holes; cur in [S/4, S); with ``empty_row`` batch row 0
+    has no valid slot."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    q = t(rng.standard_normal((B, H, hd)).astype(np.float32))
+    k8, v8, ks, vs = kv_ops.quantize_kv(
+        t(rng.standard_normal((B, S, K, hd)).astype(np.float32)),
+        t(rng.standard_normal((B, S, K, hd)).astype(np.float32)))
+    kpos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    if holes:
+        kpos[rng.random((B, S)) < 0.3] = -1
+    if empty_row:
+        kpos[0] = -1
+    cur = rng.integers(S // 4, S, size=(B,)).astype(np.int32)
+    return q, k8, v8, ks, vs, t(kpos), t(cur)
+
+
+# (B, H, K, hd, S, window, holes, empty_row): the serve engine's decode
+# shape, GQA at TinyLlama's width, MQA at hd 128, ragged S, a window,
+# kpos holes, a row with no valid slot, and small odd shapes
+KV_CASES = [
+    (8, 12, 12, 64, 96, None, False, False),
+    (2, 32, 4, 64, 2048, None, False, False),
+    (3, 16, 1, 128, 512, None, False, False),
+    (4, 12, 12, 64, 100, None, False, False),
+    (2, 8, 2, 64, 256, 64, False, False),
+    (2, 8, 2, 64, 300, None, True, False),
+    (3, 4, 4, 32, 130, None, False, True),
+    (1, 2, 1, 16, 1, None, False, False),
+    (2, 6, 3, 112, 257, 7, True, False),
+    (2, 4, 2, 256, 300, None, False, False),
+]
+
+
+@pytest.mark.parametrize("B,H,K,hd,S,window,holes,empty_row", KV_CASES)
+def test_kv_decode_kernel_matches_plain(cuda, B, H, K, hd, S, window, holes,
+                                        empty_row):
+    args = kv_case(B, H, K, hd, S, cuda, holes=holes, empty_row=empty_row)
+    before = kv_kernel.LAUNCHES["kv_decode"]
+    got = kv_kernel.kv_decode(*args, window=window)
+    assert kv_kernel.LAUNCHES["kv_decode"] == before + 1
+    check(got, kv_decode_ref(*args, window=window))
+
+
+def test_kv_decode_misaligned_views(cuda):
+    """K/V views whose base is not 16-byte aligned are refused, not
+    copied: the kernel reads the codes in 16-byte vectors."""
+    q, k8, v8, ks, vs, kpos, cur = kv_case(2, 8, 2, 64, 200, cuda)
+    kv = [torch.cat([x.reshape(-1)[:4], x.reshape(-1)])[4:].reshape(x.shape)
+          for x in (k8, v8)]
+    assert all(x.is_contiguous() and x.data_ptr() % 16 == 4 for x in kv)
+    before = kv_kernel.LAUNCHES["kv_decode"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kv_kernel.kv_decode(q, kv[0], v8, ks, vs, kpos, cur)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kv_kernel.kv_decode(q, k8, kv[1], ks, vs, kpos, cur)
+    assert kv_kernel.LAUNCHES["kv_decode"] == before
+
+
+def test_kv_decode_is_deterministic(cuda):
+    args = kv_case(8, 12, 12, 64, 4096, cuda)
+    a, b = kv_kernel.kv_decode(*args), kv_kernel.kv_decode(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_attend_int8_auto_launches_kernel(cuda):
+    args = kv_case(2, 8, 2, 64, 96, cuda)
+    before = kv_kernel.LAUNCHES["kv_decode"]
+    check(kv_ops.attend_int8(*args), kv_decode_ref(*args))
+    assert kv_kernel.LAUNCHES["kv_decode"] == before + 1
+    kv_ops.attend_int8(*args, backend="torch")  # the plain version launches nothing
+    assert kv_kernel.LAUNCHES["kv_decode"] == before + 1
+
+
+def test_kv_decode_rejects_bad_operands(cuda):
+    q, k8, v8, ks, vs, kpos, cur = kv_case(2, 8, 2, 64, 96, cuda)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kv_kernel.kv_decode(q.cpu(), k8, v8, ks, vs, kpos, cur)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kv_ops.attend_int8(q.cpu(), k8.cpu(), v8.cpu(), ks.cpu(), vs.cpu(),
+                           kpos.cpu(), cur.cpu(), backend="cuda")
+    with pytest.raises(TypeError, match="float32"):
+        kv_kernel.kv_decode(q, k8, v8, ks.half(), vs, kpos, cur)
+    with pytest.raises(TypeError, match="int8"):
+        kv_kernel.kv_decode(q, k8.float(), v8, ks, vs, kpos, cur)
+    with pytest.raises(ValueError, match="contiguous"):
+        kv_kernel.kv_decode(q.transpose(0, 1).contiguous().transpose(0, 1),
+                            k8, v8, ks, vs, kpos, cur)
+
+
+def test_engine_kernel_path_on_card(cuda):
+    """A reduced W4 engine run over an int8 pool launches all three kernels
+    and hands every page back."""
+    from repro_torch.deploy import rtn_artifact
+    from repro_torch.models import get_model
+    from repro_torch.serve_engine import EngineConfig, ServeEngine
+
+    cfg, model = get_model("brecq_lm_100m", reduced=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    art = rtn_artifact(params, 4, None, cfg=cfg)
+    eng = ServeEngine(model, art.params, EngineConfig(
+        num_slots=3, page_size=4, num_pages=49, max_len=32, prefill_chunk=16))
+    eng.compile()
+    kernel.reset_launches()
+    kv_kernel.reset_launches()
+    rng = np.random.default_rng(11)
+    for uid, n in enumerate((5, 13, 9)):
+        eng.submit(rng.integers(0, cfg.vocab, size=n), 6, uid=uid)
+    eng.run()
+    assert all(r.state == "done" for r in eng.requests.values())
+    eng.assert_no_leaks()
+    assert kv_kernel.LAUNCHES["kv_decode"] > 0
+    assert kernel.LAUNCHES["qgemv"] > 0 and kernel.LAUNCHES["qmatmul"] > 0

@@ -30,7 +30,9 @@ SHAPE = ["--reduced", "--batch", "4", "--prompt-len", "16", "--gen-len", "6",
          "--no-compare-fp"]
 
 
-def np_params(seed=0):
+def np_params(seed=0, w_scale=1.0):
+    """Reduced brecq-lm-100m params made with numpy; ``w_scale`` scales the
+    linear weights (3x keeps greedy decode from settling on one token)."""
     _, jmodel = j_get_model("brecq_lm_100m", reduced=True)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
     rng = np.random.default_rng(seed)
@@ -41,7 +43,7 @@ def np_params(seed=0):
             return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
         if name == "table":
             return (0.5 * rng.standard_normal(s.shape)).astype(np.float32)
-        lim = 1.0 / np.sqrt(s.shape[-2])
+        lim = w_scale / np.sqrt(s.shape[-2])
         return rng.uniform(-lim, lim, s.shape).astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
@@ -155,6 +157,69 @@ def test_entry_point_raises_without_cuda():
         pytest.skip("a CUDA device is present: the default device is usable")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main([*SHAPE, "--quant", "4"])
+
+
+ENGINE = ["--reduced", "--batch", "4", "--prompt-len", "16", "--gen-len", "6",
+          "--streams", "6", "--engine"]
+
+
+def jax_engine_tokens(args, p, bits):
+    """The JAX engine driven as the JAX CLI's ``--engine`` drives it:
+    arrivals, lengths and prompts drawn from ``--seed``, an RTN artifact of
+    ``p``, the worst-case pool."""
+    from repro.data import Corpus as JCorpus
+    from repro.data import CorpusConfig as JCorpusConfig
+    from repro.serve_engine import EngineConfig, ServeEngine
+
+    jcfg, jmodel = j_get_model("brecq_lm_100m", reduced=True)
+    art = j_rtn_artifact(jax.tree.map(jnp.asarray, p), bits, None, cfg=jcfg)
+    eng = ServeEngine(jmodel, art.params, EngineConfig(
+        num_slots=4, page_size=16, num_pages=1 + 4 * 2, max_len=22,
+        prefill_chunk=16, kv_dtype=args["kv"], overcommit=args["overcommit"],
+        backend="xla"), quant=art.hook())
+    n, seed = 6, args["seed"]
+    rng = np.random.default_rng(seed)
+    corpus = JCorpus(JCorpusConfig(vocab=jcfg.vocab))
+    arrivals = sorted(int(a) for a in rng.integers(0, 4 * n, n))
+    plens = rng.integers(8, 17, n)
+    gens = rng.integers(3, 7, n)
+    prompts = [corpus.sample(1, int(plens[i]), seed=seed + i)[0] for i in range(n)]
+    nxt = 0
+    while nxt < n or eng.pending():
+        while nxt < n and arrivals[nxt] <= eng.tick:
+            eng.submit(prompts[nxt], int(gens[nxt]))
+            nxt += 1
+        eng.step()
+    return {u: list(r.generated) for u, r in eng.requests.items()}, eng.metrics()
+
+
+@pytest.mark.parametrize("kv,overcommit", [("int8", "none"), ("float32", "prompt")])
+def test_serve_engine_matches_jax_engine(kv, overcommit):
+    p = np_params(seed=2, w_scale=3.0)
+    out = serve.main([*ENGINE, "--quant", "4", "--kv-dtype", kv, "--overcommit",
+                      overcommit, "--seed", "5", "--device", "cpu"],
+                     params=params_from_numpy(p))
+    want, jm = jax_engine_tokens({"kv": kv, "overcommit": overcommit, "seed": 5}, p, 4)
+    assert out["tokens"] == want
+    assert set(out["states"].values()) == {"done"}
+    m = out["metrics"]
+    assert m["tokens_generated"] == jm["tokens_generated"] > 0
+    assert (m["bytes_per_page"], m["ticks"]) == (jm["bytes_per_page"], jm["ticks"])
+    assert out["artifact_bytes"] < out["fp_bytes"]
+
+
+def test_engine_entry_point_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main([*ENGINE, "--quant", "4"])
+
+
+def test_engine_cli_cpu_smoke():
+    res = _run(["-m", "repro_torch.launch.serve", *ENGINE, "--quant", "4",
+                "--device", "cpu", "--overcommit", "prompt", "--num-pages", "5"])
+    assert res.returncode == 0, res.stderr
+    assert "[engine int8]" in res.stdout and "tok/s sustained" in res.stdout
 
 
 def test_port_imports_no_jax_and_no_reference_package():
