@@ -34,7 +34,18 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              deliberately wrong kv_decode (the logits limit must catch it),
              staggered vs sequential (4 streams), and under page pressure
              (tokens and logits against the unpressured run)
-  6. report  one JSON line of kernels, the card's name and power limit, and
+  6. moe     hold ``qmatmul_grouped`` against its plain versions at
+             deepseek-moe-16b's expert shapes (E 64; M 4, 8, 9, 64; W4, W2,
+             group-128 scales, W3 codes in an int8 container, ragged N) and
+             catch a deliberately wrong one; time kernel, plain version,
+             library yardstick (torch.bmm on the pre-dequantized weight)
+             and bound per MoE layer at M 8 and 64; serve deepseek-moe-16b
+             at full width, depth cut to 4 layers (1 dense + 3 MoE), W4,
+             capacity routing: fixed batch (8 x 64 prompt, 32 generated;
+             expected grouped launches counted, the plain path replays the
+             tokens) and the engine (8 slots, int8 pool; staggered ==
+             sequential bit for bit on 4 streams)
+  7. report  one JSON line of kernels, the card's name and power limit, and
              the final ``{"ok": true, "device": ...}`` line
 
 Exits non-zero on any failure, and when no CUDA device is available.
@@ -47,6 +58,7 @@ import argparse
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -99,6 +111,21 @@ MIN_STEPS_SHARED = 0.5  # of an engine comparison's steps on a shared history
 # hold no codes to flip, by 1.2e-5; a kv_decode that drops the newest key
 # gives 0.91 (PERF.md). The limit sits between: ~3x the int8 reading.
 ENGINE_LOGIT_TOL = 5e-2  # of max |logit|
+
+# (K, N) of one deepseek-moe-16b MoE layer's routed-expert matmuls, with how
+# many of the layer's 3 calls have that shape: w_gate/w_up, w_down; 64 experts
+MOE_SHAPES = {(2048, 1408): 2, (1408, 2048): 1}
+MOE_E = 64
+# rows per expert: the engine's prefill chunk (32 tokens), decode (8
+# sequences), a ragged tile, the fixed-batch prefill (64 tokens x 8)
+MOE_PARITY_M = (4, 8, 9, 64)
+MOE_TIMED_M = (8, 64)  # decode, fixed-batch prefill
+# (bits, group, K, N) parity cases: the served W4 shapes, W2, group-128
+# scales, W3 codes in an int8 container, a ragged N
+MOE_CASES = [(4, None, 2048, 1408), (4, None, 1408, 2048), (2, None, 2048, 1408),
+             (4, 128, 2048, 1408), (3, None, 1408, 2048), (4, None, 2048, 200)]
+MOE_LAYERS = 4  # depth cut of deepseek-moe-16b: its dense layer + 3 MoE layers
+MOE_ENGINE_STREAMS = 8
 
 
 def tolerance(ref) -> float:
@@ -350,7 +377,6 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
     from repro_torch.data import Corpus, CorpusConfig
     from repro_torch.deploy import QuantizedArtifact
     from repro_torch.models import get_model
-    from repro_torch.models.common import NO_QUANT
 
     launches = {"qgemv": 0, "qmatmul": 0}
     results = []
@@ -381,32 +407,9 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
         art = QuantizedArtifact.load(str(art_dir)).to("cuda")
         prompts = Corpus(CorpusConfig(vocab=cfg.vocab)).sample(8, 64, seed=7)
         batch = {"tokens": torch.from_numpy(prompts).cuda()}
-        gen = first["tokens"]
-        logits = {}
-        with torch.inference_mode():
-            for backend in ("cuda", "torch"):
-                hook = copy.copy(NO_QUANT)
-                hook.packed_backend = backend
-                cache = model.init_cache(8, 96, torch.float32, "cuda")
-                step, cache = model.prefill(art.params, batch, cache, hook)
-                steps = [step]
-                for i in range(gen.shape[1] - 1):
-                    pos = torch.full((8,), 64 + i, dtype=torch.int32, device="cuda")
-                    step, cache = model.decode_step(art.params, gen[:, i:i + 1],
-                                                    cache, pos, hook)
-                    steps.append(step)
-                logits[backend] = torch.stack(steps, 1)  # (B, gen, V)
-        got, want = logits["cuda"], logits["torch"]
-        err = float((got - want).abs().max())
         # 12 layers x 7 packed matmuls compound the per-matmul f32 order error
-        tol = 1e-3 * float(want.abs().max())
-        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-        if not bool(torch.isfinite(got).all()) or err > tol:
-            fail(f"W{bits}: kernel-path logits differ from the plain path by "
-                 f"{err:.3e} > {tol:.3e}")
-        if not torch.equal(got.argmax(-1), gen.long()):
-            fail(f"W{bits}: replayed kernel-path logits do not reproduce the "
-                 f"served tokens")
+        err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch,
+                                           first["tokens"], f"W{bits}")
         st = first["stats"]
         print(f"[serve W{bits}] logits kernel vs plain: max abs err {err:.3e} "
               f"(tol {tol:.3e}); greedy token agreement {agree:.4f}; artifact "
@@ -421,6 +424,43 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
                         "fp_bytes": first["fp_bytes"], "stats": st,
                         "fp_stats": first["fp_stats"]})
     return launches, results
+
+
+def replay_logits(torch, model, params, batch, gen, backend):
+    """Prefill ``batch``, then decode the served tokens ``gen`` (B, T)
+    teacher-forced, with packed matmuls on ``backend``: logits (B, T, V)."""
+    from repro_torch.models.common import NO_QUANT
+
+    hook = copy.copy(NO_QUANT)  # NO_QUANT is a shared singleton
+    hook.packed_backend = backend
+    b, s = batch["tokens"].shape
+    with torch.inference_mode():
+        cache = model.init_cache(b, s + gen.shape[1], torch.float32, "cuda")
+        step, cache = model.prefill(params, batch, cache, hook)
+        steps = [step]
+        for i in range(gen.shape[1] - 1):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device="cuda")
+            step, cache = model.decode_step(params, gen[:, i:i + 1], cache, pos, hook)
+            steps.append(step)
+    return torch.stack(steps, 1)
+
+
+def _kernel_vs_plain(torch, model, params, batch, gen, what):
+    """Replay the served tokens through the kernels and the plain versions:
+    logits within 1e-3 * max|logit|, and the kernel path's greedy tokens
+    are the served ones. Returns (max abs err, limit, token agreement)."""
+    got = replay_logits(torch, model, params, batch, gen, "cuda")
+    want = replay_logits(torch, model, params, batch, gen, "torch")
+    err = float((got - want).abs().max())
+    tol = 1e-3 * float(want.abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not bool(torch.isfinite(got).all()) or err > tol:
+        fail(f"{what}: kernel-path logits differ from the plain path by "
+             f"{err:.3e} > {tol:.3e}")
+    if not torch.equal(got.argmax(-1), gen.long()):
+        fail(f"{what}: replayed kernel-path logits do not reproduce the "
+             f"served tokens")
+    return err, tol, agree
 
 
 def _counted(kernels, fn):
@@ -575,7 +615,7 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
     out, launches = _counted(kernels, lambda: serve.main(main_args, params=params))
     m = out["metrics"]
     print(f"[engine] main path: kernel launches {launches}")
-    if min(launches.values()) == 0:
+    if min(launches[k] for k in ("qgemv", "qmatmul", "kv_decode")) == 0:
         fail(f"the engine's main path did not launch every kernel: {launches}")
     if set(out["states"].values()) != {"done"}:
         fail(f"engine requests did not all finish: {out['states']}")
@@ -676,7 +716,194 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
                       "preempted_uids": hit}
 
 
-def kernel_line(errs, rows, kv_err, kv_timed, launches) -> dict:
+def grouped_plain(ref, x, wp, s, bits):
+    """The plain grouped version ``qmm`` picks: one expert at a time up to
+    8 rows per expert, one (E, K, N) dequant above."""
+    fn = ref.qmm_grouped_ref if x.shape[1] <= 8 else ref.qmm_grouped_dense_ref
+    return fn(x, wp, s, bits)
+
+
+def phase_moe_kernel(torch, kernel, ref, pack) -> tuple[float, list]:
+    """qmatmul_grouped vs its plain versions at deepseek-moe-16b's expert
+    shapes, a wrong kernel caught, and timings per MoE layer."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    err_max, cases, rows, wrong = 0.0, 0, [], None
+    for bits, group, k, n in MOE_CASES:
+        w = torch.randn((MOE_E, k, n), generator=gen, device=dev) * 0.02
+        wp, s = pack.rtn_pack_leaf(w, bits, group)
+        del w
+        cbits = pack.container_bits(bits, k)
+        for m in MOE_PARITY_M:
+            x = torch.randn((MOE_E, m, k), generator=gen, device=dev)
+            out = kernel.qmatmul_grouped(x, wp, s, bits=cbits)
+            want = grouped_plain(ref, x, wp, s, cbits)
+            torch.cuda.synchronize()
+            err = float((out - want).abs().max())
+            tol = tolerance(want)
+            cases += 1
+            err_max = max(err_max, err)
+            if not math.isfinite(err) or err > tol:
+                fail(f"qmatmul_grouped W{bits} group={group} E={MOE_E} M={m} "
+                     f"K={k} N={n}: max abs err {err:.3e} > tol {tol:.3e}")
+            served = bits == 4 and group is None and (k, n) in MOE_SHAPES
+            if served and m == 8 and wrong is None:
+                # a wrong kernel: every expert reads expert 0's scales
+                bad = kernel.qmatmul_grouped(x, wp, s[:1].expand_as(s).contiguous(),
+                                             bits=cbits)
+                wrong = float((bad - want).abs().max())
+                print(f"[moe] a qmatmul_grouped that reads expert 0's scales for "
+                      f"every expert: max abs err {wrong:.3e} (tol {tol:.3e})")
+                if wrong <= tol:
+                    fail(f"the K3 tolerance {tol:.3e} does not catch a wrong "
+                         f"kernel ({wrong:.3e})")
+            if served and m in MOE_TIMED_M:
+                rows.append(_time_grouped(torch, kernel, ref, pack, x, wp, s, m,
+                                          k, n, err, float(want.abs().max())))
+    print(f"[moe] {cases} qmatmul_grouped-vs-plain cases within "
+          f"1e-4*max|ref|+1e-5; max abs err {err_max:.3e}")
+    return err_max, rows
+
+
+def _time_grouped(torch, kernel, ref, pack, x, wp, s, m, k, n, err, amax) -> dict:
+    copies = max(2, math.ceil(L2_FLUSH_BYTES / (wp.numel() + s.numel() * 4)))
+    arg_sets = [(x, wp.clone(), s.clone()) for _ in range(copies)]
+    t_kernel = graph_time_ms(
+        torch, lambda a, b, c: kernel.qmatmul_grouped(a, b, c, bits=4), arg_sets)
+    t_plain = graph_time_ms(torch, lambda a, b, c: grouped_plain(ref, a, b, c, 4),
+                            arg_sets)
+    del arg_sets
+    w_deq = pack.dequant_leaf(wp, s, k)  # (E, K, N) f32
+    lib_copies = max(2, math.ceil(L2_FLUSH_BYTES / (w_deq.numel() * 4)))
+    lib_sets = [(x, w_deq.clone()) for _ in range(lib_copies)]
+    t_lib = graph_time_ms(torch, torch.bmm, lib_sets)
+    del lib_sets, w_deq
+    b_ms, b_by = bound(m, k, n, 4, s.shape[1])
+    b_ms *= MOE_E  # E independent products of the same shape
+    row = {"kernel": "qmatmul_grouped", "bits": 4, "group": None, "E": MOE_E,
+           "M": m, "K": k, "N": n, "ms": t_kernel, "plain_ms": t_plain,
+           "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
+           "max_abs_err": err, "max_rel_err": err / max(amax, 1e-30)}
+    print(f"[time] qmatmul_grouped W4 E={MOE_E} M={m:2d} K={k:4d} N={n:4d}: kernel "
+          f"{t_kernel*1e3:9.2f} us  plain {t_plain*1e3:9.2f} us  library "
+          f"{t_lib*1e3:9.2f} us  bound {b_ms*1e3:7.2f} us ({b_by})  err {err:.2e}")
+    return row
+
+
+@contextlib.contextmanager
+def _dropped_at_prefill(moe_mod, log: list):
+    """Count, for every MoE call on more than one token, the (token,
+    expert) picks that capacity routing drops (``log`` = [dropped, all])."""
+    orig = moe_mod.apply
+
+    def apply(ctx, p, spec, x):
+        if x.shape[1] > 1:
+            dropped, picks = moe_mod.dropped_picks(ctx, p, spec, x)
+            log[0] += dropped
+            log[1] += picks
+        return orig(ctx, p, spec, x)
+
+    moe_mod.apply = apply
+    try:
+        yield
+    finally:
+        moe_mod.apply = orig
+
+
+def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
+    """deepseek-moe-16b at full width, depth cut to 4 layers, W4, capacity
+    routing, through the fixed-batch path and the engine."""
+    import numpy as np
+
+    from repro_torch.data import Corpus, CorpusConfig
+    from repro_torch.deploy import QuantizedArtifact, rtn_artifact, tree_bytes
+    from repro_torch.models import build_model, get_config
+    from repro_torch.models import moe as moe_mod
+
+    cfg = dataclasses.replace(get_config("deepseek_moe_16b"), n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    n_moe = MOE_LAYERS - cfg.moe.first_k_dense
+    if model.moe_impl != "capacity":
+        fail(f"deepseek-moe-16b routes by {model.moe_impl!r}, not capacity")
+    t0 = time.perf_counter()
+    params = engine_params(torch, model)
+    fp_bytes = tree_bytes(params)
+    art_dir = workdir / "moe_w4"
+    rtn_artifact(params, 4, None, cfg=cfg).save(str(art_dir))
+    del params
+    torch.cuda.empty_cache()
+    art = QuantizedArtifact.load(str(art_dir), verify=True).to("cuda")
+    serve._check_manifest(art.manifest, cfg)
+    art_bytes = art.nbytes()
+    print(f"[moe] {cfg.name} at full width, {MOE_LAYERS} layers ({n_moe} MoE, "
+          f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k}, "
+          f"{cfg.moe.n_shared} shared): W4 artifact {art_bytes} B vs fp "
+          f"{fp_bytes} B ({art_bytes / fp_bytes:.3f}x); made, saved and loaded "
+          f"verified in {time.perf_counter() - t0:.1f}s")
+
+    # fixed batch: the main path, kernel launches counted
+    prompts = Corpus(CorpusConfig(vocab=cfg.vocab)).sample(8, 64, seed=7)
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    (gen, st), launches = _counted(kernels, lambda: serve.run_prefill_decode(
+        model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
+        hook=art.hook(), tag="moe W4"))
+    forwards = 2 + 32  # warm-up prefill and decode step, prefill, 31 decode steps
+    print(f"[moe serve] kernel launches {launches}; qmm tiers {st['qmm_tiers']}")
+    if launches["qmatmul_grouped"] != 3 * n_moe * forwards:
+        fail(f"qmatmul_grouped launched {launches['qmatmul_grouped']} times, not "
+             f"3 x {n_moe} MoE layers x {forwards} forwards")
+    if st["qmm_tiers"]["grouped"] == 0 or min(
+            launches[k] for k in ("qgemv", "qmatmul", "qmatmul_grouped")) == 0:
+        fail(f"the MoE serve missed a kernel or the grouped tier: {launches}, "
+             f"{st['qmm_tiers']}")
+    drops = [0, 0]
+    with _dropped_at_prefill(moe_mod, drops):
+        err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen,
+                                           "moe W4")
+    distinct = sorted(len(set(row.tolist())) for row in gen)
+    print(f"[moe serve] logits kernel vs plain: max abs err {err:.3e} (tol "
+          f"{tol:.3e}); greedy token agreement {agree:.4f}; distinct tokens per "
+          f"sequence {distinct}; prefill {st['prefill_tok_s']:.1f} tok/s, decode "
+          f"{st['tok_s']:.1f} tok/s; capacity dropped {drops[0]} of {drops[1]} "
+          f"(token, expert) picks at prefill ({drops[0] // 2} per pass)")
+    fixed = {"launches": launches, "stats": st, "logits_max_abs_err": err,
+             "token_agreement": agree, "distinct_tokens_per_sequence": distinct,
+             "dropped_picks_per_prefill": drops[0] // 2,
+             "picks_per_prefill": drops[1] // 2, "artifact_bytes": art_bytes,
+             "fp_bytes": fp_bytes}
+
+    # the engine: 8 slots over an int8 pool, launches counted
+    args = serve.parse_args(["--arch", "deepseek_moe_16b", "--quant", "4", "--engine",
+                             "--batch", "8", "--prompt-len", "64", "--gen-len", "32",
+                             "--seed", "0", "--kv-dtype", "int8", "--streams",
+                             str(MOE_ENGINE_STREAMS)])
+    streams = serve.engine_streams(args, cfg.vocab)
+    eng, elaunch = _counted(kernels, lambda: _engine(serve, model, art, args,
+                                                     streams, "cuda"))
+    m = eng.metrics()
+    edistinct = sorted(len(set(t)) for t in _tokens(eng).values())
+    print(f"[moe engine] kernel launches {elaunch}; {m['tokens_generated']} tokens "
+          f"in {m['wall_s']:.2f}s ({m['sustained_tok_s']:.1f} tok/s sustained), "
+          f"occupancy {m['mean_slot_occupancy']:.3f}, resident KV "
+          f"{m['mean_resident_kv_bytes_per_stream']:.0f} B/stream; distinct "
+          f"tokens per stream {edistinct}")
+    if min(elaunch.values()) == 0:
+        fail(f"the MoE engine did not launch every kernel: {elaunch}")
+    four = streams[:4]
+    stag = _engine(serve, model, art, args, four, "cuda")
+    seq = _engine(serve, model, art, args, four, "cuda", sequential=True)
+    ls, lq = _logits(stag), _logits(seq)
+    if not (all(np.array_equal(ls[u], lq[u]) for u in ls)
+            and _tokens(stag) == _tokens(seq)):
+        fail("MoE engine: staggered and sequential serving of 4 streams differ")
+    print(f"[moe engine] staggered == sequential for 4 streams: tokens and logits "
+          f"bit-identical ({stag.metrics()['ticks']} vs {seq.metrics()['ticks']} "
+          f"ticks)")
+    return {"fixed": fixed, "engine": {"metrics": m, "launches": elaunch,
+                                       "distinct_tokens_per_stream": edistinct}}
+
+
+def kernel_line(errs, rows, kv_err, kv_timed, launches, moe) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
@@ -710,6 +937,20 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches) -> dict:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shapes": f"B={t['B']} H={t['H']} K={t['K']} hd={t['hd']} S={t['S']}"})
+    sel = [r for r in moe["rows"] if r["M"] == 8]
+    tot = {key: sum(MOE_SHAPES[(r["K"], r["N"])] * r[key] for r in sel)
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out.append({
+        "name": "qmatmul_grouped", "route": "cuda",
+        "source": "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu",
+        "replaces": "src/repro/kernels/qmatmul/kernel.py:194",
+        "launches": moe["launches"]["qmatmul_grouped"],
+        "max_abs_err": moe["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+        "bound_ms": tot["bound_ms"], "bound_by": sel[0]["bound_by"],
+        "library_ms": tot["library_ms"],
+        "shapes": f"one deepseek-moe-16b MoE layer: 2x E{MOE_E} 2048x1408, 1x "
+                  f"E{MOE_E} 1408x2048; W4 per-channel; M=8 per expert",
+        "launches_from": "the MoE fixed-batch serve"})
     return {"kernels": out}
 
 
@@ -741,11 +982,15 @@ def main(argv=None) -> None:
     errs, rows = phase_parity(torch, kernel, ref, pack)
     kv_err, kv_timed = phase_kv(torch, kv_kernel, kv_ref)
     host = phase_host(torch, ops, pack)
+    moe_err, moe_rows = phase_moe_kernel(torch, kernel, ref, pack)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, served = phase_serve(torch, kernel, ops, serve, Path(tmp))
         launches, engine = phase_engine(torch, serve, kernels, Path(tmp))
+        moe = phase_moe_serve(torch, serve, kernels, Path(tmp))
 
-    line = kernel_line(errs, rows, kv_err, kv_timed, launches)
+    line = kernel_line(errs, rows, kv_err, kv_timed, launches,
+                       {"err": moe_err, "rows": moe_rows,
+                        "launches": moe["fixed"]["launches"]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -756,7 +1001,8 @@ def main(argv=None) -> None:
         Path(args.json).write_text(json.dumps(
             {"device": device, "nvidia_smi": smi, "build": build,
              "timings": rows, "kv_timings": kv_timed, "host": host,
-             "serve": served, "engine": engine, "kernels": line["kernels"],
+             "serve": served, "engine": engine, "moe_timings": moe_rows,
+             "moe": moe, "kernels": line["kernels"],
              "wall_s": time.perf_counter() - t_start}, indent=1))
     print(json.dumps(line))
     print(smi)

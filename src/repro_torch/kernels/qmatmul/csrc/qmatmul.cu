@@ -2,10 +2,12 @@
 //
 // Replaces the JAX package's Pallas TPU kernels in
 // src/repro/kernels/qmatmul/kernel.py:
-//   qgemv    (kernel.py:140, body :115)  decode GEMV, M <= 8 batch rows
-//   qmatmul  (kernel.py:83,  body :64)   prefill GEMM, any M
+//   qgemv            (kernel.py:140, body :115)  decode GEMV, M <= 8 batch rows
+//   qmatmul          (kernel.py:83,  body :64)   prefill GEMM, any M
+//   qmatmul_grouped  (kernel.py:194, body :175)  stacked MoE experts, any M
 //
-// Operands (all row-major, contiguous):
+// Operands (all row-major, contiguous; the grouped kernel takes a leading
+// expert axis E on x, wp, s and out):
 //   x      (M, K)            f32 activations
 //   wp     (K * bits/8, N)   packed codes, read as uint8. Field i of packed
 //                            row r holds K-row r*per+i at shift bits*i,
@@ -14,7 +16,7 @@
 //   s      (G, N)            f32 scales, one row per group of K/G K-rows
 //   out    (M, N)            f32
 //
-// Both kernels mask ragged M and N themselves, so no padding is needed on
+// Every kernel masks ragged M and N itself, so no padding is needed on
 // the caller's side. The math is f32 FMA on CUDA cores; tensor cores
 // (wgmma, bf16/tf32) and TMA staging are later work.
 //
@@ -36,8 +38,25 @@
 // and the unpacked, scaled weight tile go through shared memory, the next
 // step's global loads are in flight during the current step's math, and a
 // thread keeps a 4 x 4 tile fed by float4 shared-memory reads.
+//
+// qmatmul_grouped runs every routed-expert matmul of a MoE layer: x (E, M, K)
+// @ dequant(wp (E, K*bits/8, N), s (E, G, N)) -> (E, M, N), with M the tokens
+// each expert takes (8 at decode, 64 at deepseek-moe-16b's fixed-batch
+// prefill). Each expert's operands are found by size_t offsets from the
+// expert index on the grid, and the stacked codes are read directly, so no
+// (E, K, N) dequantized copy exists. At M = 8 it is bound by f32 operations
+// on paper (2*E*M*K*N against E*K*N*bits/8 bytes) and at M = 64 more so,
+// but each 92 MB weight (W4) streams from device memory once per call, so
+// the kernel needs ~25 KB in flight per SM to keep that stream going. The
+// TPU kernel's blocks are not carried over. M <= 8: one 256-thread block per
+// (64 columns, expert) over all of K (E x N/64 = 1,408 blocks fill the card
+// without a split of K); K goes in stages through a 4-deep cp.async ring in
+// shared memory, 3 stages ahead of the math, and each thread keeps 8 x 4
+// sums. Larger M takes qmatmul's 64 x 64 tile with the expert on grid.z and
+// all of K in one block. Both are deterministic.
 
 #include <cooperative_groups.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +80,10 @@ constexpr int kMmBM = 64;
 constexpr int kMmBN = 64;
 constexpr int kMmBK = 32;
 constexpr int kMmSplit = 2;  // blocks per cluster, each one half of K
+
+// qmatmul_grouped at M <= 8: k-values per stage and stages in the ring.
+constexpr int kGgKS = 128;
+constexpr int kGgStages = 4;
 
 // Centred code of field i of a packed byte (the low byte of `byte`).
 template <int BITS>
@@ -112,6 +135,27 @@ __device__ __forceinline__ void load_x(const float* __restrict__ x, int K, int M
       for (int i = 0; i < PER; ++i) xv[m][i] = 0.f;
     }
   }
+}
+
+// Hand every row slice's accumulators to shared memory (red[ty][m][col]).
+__device__ __forceinline__ void gemv_stage(float (&red)[kGemvTY][kMaxM][kGemvCols],
+                                           const float (&acc)[kMaxM][4], int tx, int ty) {
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) red[ty][m][tx * 4 + c] = acc[m][c];
+  __syncthreads();
+}
+
+// Output o = m * kGemvCols + col of a block: its slices summed in order.
+__device__ __forceinline__ float gemv_slice_sum(const float (&red)[kGemvTY][kMaxM][kGemvCols],
+                                                int o) {
+  const int m = o / kGemvCols;
+  const int col = o % kGemvCols;
+  float sum = 0.f;
+#pragma unroll
+  for (int t = 0; t < kGemvTY; ++t) sum += red[t][m][col];
+  return sum;
 }
 
 // Decode GEMV. Block (bx, rank) owns columns [64 bx, 64 bx + 64) and packed
@@ -188,21 +232,11 @@ qgemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
         for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(part[m][c], sc[c], acc[m][c]);
     }
   }
-
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) red[ty][m][tx * 4 + c] = acc[m][c];
-  __syncthreads();
+  gemv_stage(red, acc, tx, ty);
 
   const int tid = ty * kGemvTX + tx;
   for (int o = tid; o < kMaxM * kGemvCols; o += kGemvThreads) {
-    const int m = o / kGemvCols;
-    const int col = o % kGemvCols;
-    float sum = 0.f;
-#pragma unroll
-    for (int t = 0; t < kGemvTY; ++t) sum += red[t][m][col];
-    part_out[o] = sum;
+    part_out[o] = gemv_slice_sum(red, o);
   }
   cluster.sync();  // every block's part_out is written and visible
   if (rank == 0) {
@@ -222,41 +256,31 @@ qgemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
   cluster.sync();  // no block leaves while block 0 still reads its shared memory
 }
 
-// Prefill GEMM. Each block computes a 64 x 64 output tile over one half of K
-// (a 2-block cluster along grid.z covers all of K) in k-steps of 32: the x
+// One 64 x 64 output tile over k in [k_begin, k_end), in k-steps of 32: the x
 // tile (k-major) and the unpacked, scaled weight tile are staged in shared
 // memory, the next step's global loads are issued into registers before the
-// current step's math, and each thread keeps a 4 x 4 tile read as float4
-// from shared memory. Each thread unpacks whole packed bytes: 4 columns of
-// one packed row per 32-bit load. Block 1 hands its tile to block 0 through
-// distributed shared memory, which adds it in a fixed order and writes.
+// current step's math, and each thread keeps a 4 x 4 tile read as float4 from
+// shared memory. Each thread unpacks whole packed bytes: 4 columns of one
+// packed row per 32-bit load and scales each code as it unpacks it (a scale
+// group may be shorter than a k-step).
 template <int BITS>
-__global__ void __cluster_dims__(1, 1, kMmSplit) __launch_bounds__(kMmThreads)
-qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
-               const float* __restrict__ s, float* __restrict__ out,
-               int M, int K, int N, int G, int vec) {
+__device__ __forceinline__ void mm_tile(const float* __restrict__ x,
+                                        const uint8_t* __restrict__ wp,
+                                        const float* __restrict__ s, int M, int K, int N,
+                                        int G, bool vec, int m0, int n0, int k_begin,
+                                        int k_end, float (&xs)[kMmBK][kMmBM],
+                                        float (&ws)[kMmBK][kMmBN], float (&acc)[4][4]) {
   constexpr int kPer = 8 / BITS;
   constexpr int kWRows = kMmBK / kPer;              // packed rows per k-step
   constexpr int kWWords = kWRows * (kMmBN / 4);     // 32-bit words per k-step
   constexpr int kWPerThread = (kWWords + kMmThreads - 1) / kMmThreads;
   constexpr int kXPerThread = kMmBM * (kMmBK / 4) / kMmThreads;  // float4s
-  __shared__ __align__(16) float xs[kMmBK][kMmBM];
-  __shared__ __align__(16) float ws[kMmBK][kMmBN];
-  __shared__ __align__(16) float red[kMmBM * kMmBN];
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int tx = tid % 16;
   const int ty = tid / 16;
-  const int m0 = blockIdx.y * kMmBM;
-  const int n0 = blockIdx.x * kMmBN;
   const int rows = K / kPer;
   const int group = K / G;
   const bool xvec = (K & 3) == 0;
-  const int steps = (K + kMmBK - 1) / kMmBK;
-  const int k_begin = rank * ((steps + kMmSplit - 1) / kMmSplit) * kMmBK;
-  const int k_end = min(K, k_begin + ((steps + kMmSplit - 1) / kMmSplit) * kMmBK);
   float4 xr[kXPerThread];
   uint32_t wr[kWPerThread];
 
@@ -286,7 +310,7 @@ qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
       const int w = tid + j * kMmThreads;
       const int r = k0 / kPer + w / (kMmBN / 4);
       wr[j] = (w < kWWords && r < rows)
-                  ? load4(wp + static_cast<size_t>(r) * N, n0 + (w % (kMmBN / 4)) * 4, N, vec != 0)
+                  ? load4(wp + static_cast<size_t>(r) * N, n0 + (w % (kMmBN / 4)) * 4, N, vec)
                   : 0u;
     }
   };
@@ -326,7 +350,6 @@ qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     }
   };
 
-  float acc[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -350,6 +373,55 @@ qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
     }
     __syncthreads();
   }
+}
+
+// Write a thread's 4 x 4 outputs of the tile at (m0, n0), masking ragged M, N.
+__device__ __forceinline__ void mm_store(float* __restrict__ out, const float (&acc)[4][4],
+                                         int M, int N, bool vec, int m0, int n0) {
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = m0 + ty * 4 + i;
+    const int n = n0 + tx * 4;
+    if (m >= M) continue;
+    float* o = out + static_cast<size_t>(m) * N + n;
+    if (vec && n + 3 < N) {
+      *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (n + j < N) o[j] = acc[i][j];
+      }
+    }
+  }
+}
+
+// Prefill GEMM. Each block computes a 64 x 64 output tile over one half of K
+// (a 2-block cluster along grid.z covers all of K). Block 1 hands its tile to
+// block 0 through distributed shared memory, which adds it in a fixed order
+// and writes.
+template <int BITS>
+__global__ void __cluster_dims__(1, 1, kMmSplit) __launch_bounds__(kMmThreads)
+qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+               const float* __restrict__ s, float* __restrict__ out,
+               int M, int K, int N, int G, int vec) {
+  __shared__ __align__(16) float xs[kMmBK][kMmBM];
+  __shared__ __align__(16) float ws[kMmBK][kMmBN];
+  __shared__ __align__(16) float red[kMmBM * kMmBN];
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int m0 = blockIdx.y * kMmBM;
+  const int n0 = blockIdx.x * kMmBN;
+  const int steps = (K + kMmBK - 1) / kMmBK;
+  const int k_begin = rank * ((steps + kMmSplit - 1) / kMmSplit) * kMmBK;
+  const int k_end = min(K, k_begin + ((steps + kMmSplit - 1) / kMmSplit) * kMmBK);
+
+  float acc[4][4];
+  mm_tile<BITS>(x, wp, s, M, K, N, G, vec != 0, m0, n0, k_begin, k_end, xs, ws, acc);
 
   // split-K reduction: ranks 1.. hand their tiles to rank 0 in order
 #pragma unroll
@@ -371,23 +443,165 @@ qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
         acc[i][3] += v.w;
       }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = m0 + ty * 4 + i;
-      const int n = n0 + tx * 4;
-      if (m >= M) continue;
-      float* o = out + static_cast<size_t>(m) * N + n;
-      if (vec && n + 3 < N) {
-        *reinterpret_cast<float4*>(o) = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    mm_store(out, acc, M, N, vec != 0, m0, n0);
+  }
+  cluster.sync();  // no block leaves while rank 0 still reads its shared memory
+}
+
+// Grouped expert GEMM, decode-shaped (M <= 8 rows per expert). One block per
+// (64 columns, expert) walks all of K: E x N/64 blocks (1,408 at
+// deepseek-moe-16b's widths) fill the card without a split of K. The weight
+// streams from device memory once, so the kernel needs many bytes in flight:
+// K goes in stages of kGgKS values through a kGgStages-deep cp.async ring in
+// shared memory (the stage's packed rows x 64 columns, and x's kGgKS x 8
+// values stored k-major), loads issued kGgStages - 1 stages ahead of the
+// math. Rows of x past M and k past K arrive as zeros, so the math needs no
+// guards. The 16 row slices' sums meet in shared memory in a fixed order.
+// Per-channel scales multiply the finished sums; with scale groups (GROUPED)
+// each code is scaled as it is decoded.
+template <int BITS, bool GROUPED>
+__global__ void __launch_bounds__(kGemvThreads)
+qgemv_grouped_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+                     const float* __restrict__ s, float* __restrict__ out,
+                     int M, int K, int N, int G, int vec16) {
+  constexpr int kPer = 8 / BITS;
+  constexpr int kRS = kGgKS / kPer;             // packed rows per stage
+  constexpr int kWStage = kRS * kGemvCols;      // weight bytes per stage
+  constexpr int kStage = kWStage + kGgKS * kMaxM * 4;
+  constexpr int kRing = kGgStages * kStage;
+  constexpr int kRed = kGemvTY * kMaxM * kGemvCols * 4;
+  __shared__ __align__(16) unsigned char smem[kRing > kRed ? kRing : kRed];
+
+  const int e = blockIdx.y;
+  const int rows = K / kPer;
+  const int tx = threadIdx.x;
+  const int ty = threadIdx.y;
+  const int tid = ty * kGemvTX + tx;
+  const int n0 = blockIdx.x * kGemvCols;
+  x += static_cast<size_t>(e) * M * K;
+  wp += static_cast<size_t>(e) * rows * N;
+  s += static_cast<size_t>(e) * G * N;
+  out += static_cast<size_t>(e) * M * N;
+  const int rows_per_group = rows / G;
+
+  auto load_stage = [&](int slot, int k0) {
+    unsigned char* ws = smem + slot * kStage;
+    float* xs = reinterpret_cast<float*>(ws + kWStage);
+    const int r0 = k0 / kPer;
+    for (int p = tid; p < kRS * 4; p += kGemvThreads) {  // 16-byte pieces of rows
+      const int r = r0 + p / 4;
+      const int c = n0 + (p % 4) * 16;
+      unsigned char* dst = ws + p * 16;
+      if (vec16) {  // N % 16 == 0: a piece lies wholly inside N or outside
+        const bool in = r < rows && c < N;
+        __pipeline_memcpy_async(dst, in ? wp + static_cast<size_t>(r) * N + c : wp, 16,
+                                in ? 0 : 16);
       } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (n + j < N) o[j] = acc[i][j];
+        for (int b = 0; b < 16; ++b) {
+          dst[b] = (r < rows && c + b < N) ? __ldg(wp + static_cast<size_t>(r) * N + c + b) : 0;
         }
       }
     }
+    for (int p = tid; p < kGgKS * kMaxM; p += kGemvThreads) {  // xs[k][m] = x[m][k0 + k]
+      const int m = p % kMaxM;
+      const int k = k0 + p / kMaxM;
+      const bool in = m < M && k < K;
+      __pipeline_memcpy_async(xs + p, in ? x + static_cast<size_t>(m) * K + k : x, 4,
+                              in ? 0 : 4);
+    }
+  };
+
+  float acc[kMaxM][4];
+#pragma unroll
+  for (int m = 0; m < kMaxM; ++m)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
+  const int ncol = n0 + tx * 4;
+
+  const int nstages = (K + kGgKS - 1) / kGgKS;
+#pragma unroll
+  for (int st = 0; st < kGgStages - 1; ++st) {
+    if (st < nstages) load_stage(st, st * kGgKS);
+    __pipeline_commit();
   }
-  cluster.sync();  // no block leaves while rank 0 still reads its shared memory
+  for (int it = 0; it < nstages; ++it) {
+    __pipeline_wait_prior(kGgStages - 2);  // this thread's copies of stage `it` landed
+    __syncthreads();  // everyone's landed, and the slot of stage it - 1 is free
+    const int nxt = it + kGgStages - 1;
+    if (nxt < nstages) load_stage(nxt % kGgStages, nxt * kGgKS);
+    __pipeline_commit();
+
+    const unsigned char* ws = smem + (it % kGgStages) * kStage;
+    const float* xs = reinterpret_cast<const float*>(ws + kWStage);
+#pragma unroll
+    for (int j = 0; j < kRS / kGemvTY; ++j) {
+      const int r = ty + kGemvTY * j;  // packed row within the stage
+      const uint32_t w4 = *reinterpret_cast<const uint32_t*>(ws + r * kGemvCols + tx * 4);
+      float sc[4] = {1.f, 1.f, 1.f, 1.f};
+      if constexpr (GROUPED) {
+        const int g = min((it * kRS + r) / rows_per_group, G - 1);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sc[c] = ncol + c < N ? __ldg(s + static_cast<size_t>(g) * N + ncol + c) : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const float4 xa = *reinterpret_cast<const float4*>(xs + (r * kPer + i) * kMaxM);
+        const float4 xb = *reinterpret_cast<const float4*>(xs + (r * kPer + i) * kMaxM + 4);
+        const float xv[kMaxM] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
+        float cv[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) cv[c] = decode<BITS>(w4 >> (8 * c), i) * sc[c];
+#pragma unroll
+        for (int m = 0; m < kMaxM; ++m)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(xv[m], cv[c], acc[m][c]);
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the ring is idle: reuse it for the slices' sums
+
+  if constexpr (!GROUPED) {  // the per-channel scale multiplies the finished sum
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float sc = ncol + c < N ? __ldg(s + ncol + c) : 0.f;
+#pragma unroll
+      for (int m = 0; m < kMaxM; ++m) acc[m][c] *= sc;
+    }
+  }
+  auto& red = *reinterpret_cast<float (*)[kGemvTY][kMaxM][kGemvCols]>(smem);
+  gemv_stage(red, acc, tx, ty);
+  for (int o = tid; o < kMaxM * kGemvCols; o += kGemvThreads) {
+    const int m = o / kGemvCols;
+    const int n = n0 + o % kGemvCols;
+    if (m < M && n < N) out[static_cast<size_t>(m) * N + n] = gemv_slice_sum(red, o);
+  }
+}
+
+// Grouped expert GEMM, any M: qmatmul's 64 x 64 tile with the expert on
+// grid.z, over all of K (no cluster: E x N/64 x M/64 blocks fill the card).
+template <int BITS>
+__global__ void __launch_bounds__(kMmThreads)
+qmatmul_grouped_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+                       const float* __restrict__ s, float* __restrict__ out,
+                       int M, int K, int N, int G, int vec) {
+  constexpr int kPer = 8 / BITS;
+  __shared__ __align__(16) float xs[kMmBK][kMmBM];
+  __shared__ __align__(16) float ws[kMmBK][kMmBN];
+  const int e = blockIdx.z;
+  x += static_cast<size_t>(e) * M * K;
+  wp += static_cast<size_t>(e) * (K / kPer) * N;
+  s += static_cast<size_t>(e) * G * N;
+  out += static_cast<size_t>(e) * M * N;
+
+  const int m0 = blockIdx.y * kMmBM;
+  const int n0 = blockIdx.x * kMmBN;
+  float acc[4][4];
+  mm_tile<BITS>(x, wp, s, M, K, N, G, vec != 0, m0, n0, 0, K, xs, ws, acc);
+  mm_store(out, acc, M, N, vec != 0, m0, n0);
 }
 
 }  // namespace
@@ -430,6 +644,49 @@ int qmatmul_launch(const void* x, const void* wp, const void* s, void* out,
     case 4: qmatmul_kernel<4><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
     case 8: qmatmul_kernel<8><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Stacked experts: x (E, M, K), wp (E, K*bits/8, N), s (E, G, N), out
+// (E, M, N). M <= 8 rows per expert take the decode body, more the tile.
+int qmatmul_grouped_launch(const void* x, const void* wp, const void* s, void* out,
+                           int E, int M, int K, int N, int G, int bits, int vec,
+                           void* stream) {
+  if (E < 1 || E > 65535 || M < 1 || K < 1 || N < 1 || G < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* xf = static_cast<const float*>(x);
+  const uint8_t* w8 = static_cast<const uint8_t*>(wp);
+  const float* sf = static_cast<const float*>(s);
+  float* of = static_cast<float*>(out);
+  if (M <= kMaxM) {
+    const dim3 block(kGemvTX, kGemvTY);
+    const dim3 grid((N + kGemvCols - 1) / kGemvCols, E);
+    // 16-byte copies of packed rows: N % 16 == 0 and an aligned base
+    const int v16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0;
+#define QGG_LAUNCH(B, GR) \
+  qgemv_grouped_kernel<B, GR><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v16)
+    switch (bits * 2 + (G > 1)) {
+      case 4: QGG_LAUNCH(2, false); break;
+      case 5: QGG_LAUNCH(2, true); break;
+      case 8: QGG_LAUNCH(4, false); break;
+      case 9: QGG_LAUNCH(4, true); break;
+      case 16: QGG_LAUNCH(8, false); break;
+      case 17: QGG_LAUNCH(8, true); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+#undef QGG_LAUNCH
+  } else {
+    const dim3 block(kMmThreads);
+    const dim3 grid((N + kMmBN - 1) / kMmBN, (M + kMmBM - 1) / kMmBM, E);
+    switch (bits) {
+      case 2: qmatmul_grouped_kernel<2><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
+      case 4: qmatmul_grouped_kernel<4><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
+      case 8: qmatmul_grouped_kernel<8><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

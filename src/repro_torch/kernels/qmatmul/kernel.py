@@ -1,7 +1,7 @@
 """CUDA packed dequant-matmul kernels for Hopper: build, binding, launch.
 
-Two hand-written kernels in ``csrc/qmatmul.cu`` replace the JAX package's
-Pallas TPU kernels (``src/repro/kernels/qmatmul/kernel.py``):
+Three hand-written kernels in ``csrc/qmatmul.cu`` replace the JAX
+package's Pallas TPU kernels (``src/repro/kernels/qmatmul/kernel.py``):
 
   qgemv    replaces ``kernel.py::qgemv`` (decode, M <= 8 rows). Under 1 MB
            of packed weight per call, so parallelism and latency are its
@@ -13,8 +13,16 @@ Pallas TPU kernels (``src/repro/kernels/qmatmul/kernel.py``):
            operations at M = 512: 64 x 64 output tiles stage x and the
            unpacked, scaled weight tile through shared memory over K, with
            the next k-step's loads in flight during the math.
+  qmatmul_grouped  replaces ``kernel.py::qmatmul_grouped`` (stacked MoE
+           experts, x (E, M, K) @ (E, K*bits/8, N) codes). Bound by f32
+           operations at the serving shapes (E 64, M 8 or 64), each call
+           streaming ~92 MB of codes: M <= 8 runs one block per (expert,
+           64 columns) fed by a 4-stage cp.async ring, more rows take
+           qmatmul's tile; the expert is on the grid and its operands are
+           found by offsets into the stacked codes, so no (E, K, N)
+           dequantized copy exists.
 
-Both mask ragged M and N, so the TPU-only padding of ``ops._qmm_2d`` does
+All mask ragged M and N, so the TPU-only padding of ``ops._qmm_2d`` does
 not exist here. The library is compiled with ``nvcc`` for ``sm_90a`` at
 first use, from the sources beside this file, through ``kernels/build.py``
 (``build/kernels/`` at the repository root, keyed by a hash of the sources
@@ -33,13 +41,13 @@ from pathlib import Path
 import torch
 
 from ..build import build_dir, build_library, on_device  # noqa: F401 (build_dir)
-from ..spec import describe_qgemv, describe_qmatmul
+from ..spec import describe_qgemv, describe_qmatmul, describe_qmatmul_grouped
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "qmatmul.cu",)
 
 # Kernel launches since the last reset_launches(): one per launch that the
 # CUDA runtime accepted.
-LAUNCHES = {"qgemv": 0, "qmatmul": 0}
+LAUNCHES = {"qgemv": 0, "qmatmul": 0, "qmatmul_grouped": 0}
 
 # Set by load_library(): library path, whether it was compiled in this
 # process, build seconds and the compiler's register/spill report.
@@ -64,6 +72,9 @@ def load_library() -> ctypes.CDLL:
     lib.qgemv_launch.restype = i32
     lib.qmatmul_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
     lib.qmatmul_launch.restype = i32
+    lib.qmatmul_grouped_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                           i32, i32, i32, ptr]
+    lib.qmatmul_grouped_launch.restype = i32
     lib.qmm_error_string.argtypes = [i32]
     lib.qmm_error_string.restype = ctypes.c_char_p
     BUILD_INFO.update(info)
@@ -143,4 +154,26 @@ def qmatmul(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
                                  sp["K"], sp["N"], sp["G"], bits,
                                  _vec(w_packed, sp["N"]), stream)
     _launched(lib, "qmatmul", err)
+    return out
+
+
+def qmatmul_grouped(x: torch.Tensor, w_packed: torch.Tensor,
+                    scales: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """Stacked-expert GEMM on the card: x (E, M, K) f32 @ dequant(w_packed
+    (E, K*bits/8, N) int8, scales (E, G, N) f32) -> (E, M, N) f32, any M,
+    ragged M and N masked in the kernel."""
+    sp = describe_qmatmul_grouped(tuple(x.shape), tuple(w_packed.shape),
+                                  tuple(scales.shape), bits=bits)
+    _check_operands("qmatmul_grouped", x, w_packed, scales)
+    lib = load_library()
+    x = _aligned(x)
+    out = torch.empty((sp["E"], sp["M"], sp["N"]), dtype=torch.float32,
+                      device=x.device)
+    with on_device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.qmatmul_grouped_launch(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), sp["E"], sp["M"], sp["K"], sp["N"], sp["G"], bits,
+            _vec(w_packed, sp["N"]), stream)
+    _launched(lib, "qmatmul_grouped", err)
     return out

@@ -5,14 +5,16 @@
 
   decode    M <= DECODE_M_MAX rows (a decode step's batch): ``qgemv``
   prefill   everything else 2-D: ``qmatmul``
-  grouped   stacked expert nodes (packed.ndim == 3): comes with the MoE
-            slice and raises here
+  grouped   stacked expert nodes (packed.ndim == 3): ``qmatmul_grouped``
+            over (E, rows per expert, K) activations
 
 ``backend`` picks how a tier runs: ``'cuda'`` launches the hand-written
 kernel (and raises on CPU tensors), ``'torch'`` runs the plain PyTorch
 version, ``'auto'`` launches the kernel for CUDA tensors and runs the
 plain version for CPU tensors. The CUDA kernels mask ragged M and N, so
-no padding happens here.
+no padding happens here. The plain grouped version loops over the experts
+for decode-shaped calls (<= DECODE_M_MAX rows per expert, one expert's
+(K, N) unpacked at a time) and dequantizes (E, K, N) once above that.
 
 The decode-tier override (:func:`set_decode_tier`,
 ``REPRO_QMM_DECODE_TIER``) and the measured dispatch table
@@ -29,7 +31,7 @@ import torch
 from ...core.quantizer import pack_int
 from ...deploy.pack import code_layout
 from . import kernel
-from .ref import qgemv_ref, qmatmul_ref
+from .ref import qgemv_ref, qmatmul_ref, qmm_grouped_dense_ref, qmm_grouped_ref
 
 # Largest row count served by the decode tier.
 DECODE_M_MAX = 8
@@ -165,21 +167,46 @@ def _qmm_2d(x2: torch.Tensor, qw: QuantizedLinear, backend: str,
     return fn(x2, qw.packed, qw.scales, bits=qw.bits)
 
 
+def _qmm_grouped(x: torch.Tensor, qw: QuantizedLinear,
+                 backend: str) -> torch.Tensor:
+    """x (..., E, C, K) @ stacked qw (E, K*bits/8, N) -> (..., E, C, N)."""
+    if x.ndim < 3:
+        raise PackedNodeError(
+            f"grouped qmm: stacked codes {tuple(qw.packed.shape)} need (..., E, "
+            f"C, K) activations, got rank-{x.ndim} {tuple(x.shape)}")
+    e, c, k = x.shape[-3], x.shape[-2], x.shape[-1]
+    if e != qw.packed.shape[0] or k != qw.k:
+        raise PackedNodeError(
+            f"grouped qmm: activations (..., E={e}, C={c}, K={k}) do not "
+            f"match stacked codes {tuple(qw.packed.shape)} (E, K*bits/8, N)")
+    lead = x.shape[:-3]
+    # (..., E, C, K) -> (E, B'*C, K): experts become the leading grid dim
+    xg = x.reshape(-1, e, c, k).transpose(0, 1).reshape(e, -1, k).contiguous()
+    if backend == "torch":
+        ref = (qmm_grouped_ref if xg.shape[1] <= DECODE_M_MAX
+               else qmm_grouped_dense_ref)
+        out = ref(xg, qw.packed, qw.scales, qw.bits)
+    else:
+        out = kernel.qmatmul_grouped(xg, qw.packed, qw.scales, bits=qw.bits)
+    n = out.shape[-1]
+    return out.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
+
+
 def qmm(x: torch.Tensor, qw: QuantizedLinear, *,
         backend: str = "auto") -> torch.Tensor:
     """Packed dequant-matmul ``x @ dequant(qw)``, tier picked by shape.
 
     x: (..., K) f32; leading dims are flattened to M rows and restored.
-    Returns f32 (..., N).
+    For a stacked ``qw`` (E, K*bits/8, N): x (..., E, C, K), with C rows
+    per expert. Returns f32 (..., N), or (..., E, C, N) when stacked.
     """
     if backend not in BACKENDS:
         raise ValueError(f"qmm backend {backend!r} not in {BACKENDS}")
     if backend == "auto":
         backend = "cuda" if x.is_cuda else "torch"
     if qw.packed.ndim == 3:
-        raise NotImplementedError(
-            "grouped qmm over stacked expert nodes (qmatmul_grouped) comes "
-            "with the MoE slice of the port (ROADMAP K3)")
+        TIER_COUNTS["grouped"] += 1
+        return _qmm_grouped(x, qw, backend)
     lead = x.shape[:-1]
     x2 = x.reshape(-1, qw.k).contiguous()
     tier = select_tier(x2.shape[0], qw)

@@ -3,7 +3,11 @@
 ``qmatmul_ref`` is the literal prefill version (dequantize, then dot).
 ``qgemv_ref`` is the decode-shaped version in the JAX package's
 scale-after-dot form: it contracts the integer codes first and applies
-the per-group scales to the (G, M, N) partial sums. These run on CPU
+the per-group scales to the (G, M, N) partial sums. For stacked experts,
+``qmm_grouped_ref`` loops ``qgemv_ref`` over E (one expert's (K, N)
+resident at a time, the decode form) and ``qmm_grouped_dense_ref``
+dequantizes (E, K, N) once for one batched product (the prefill form).
+These run on CPU
 tensors (the tests hold them against the JAX package) and serve as the
 reference the CUDA kernels are held against on the card.
 """
@@ -46,3 +50,27 @@ def qgemv_ref(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor,
         partial = torch.einsum("mgk,gkn->gmn", xg, cg)
         out = torch.einsum("gmn,gn->mn", partial, scales.to(torch.float32))
     return out.to(x.dtype)
+
+
+def qmm_grouped_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                    scales: torch.Tensor, bits: int) -> torch.Tensor:
+    """Stacked-expert decode version, one expert resident at a time.
+
+    x: (E, M, K); w_packed: (E, K*bits/8, N) int8; scales: (E, G, N).
+    Per expert it is :func:`qgemv_ref`'s scale-after-dot form, so the
+    unpacked transient never exceeds one (K, N).
+    """
+    return torch.stack([qgemv_ref(x[e], w_packed[e], scales[e], bits)
+                        for e in range(x.shape[0])])
+
+
+def qmm_grouped_dense_ref(x: torch.Tensor, w_packed: torch.Tensor,
+                          scales: torch.Tensor, bits: int) -> torch.Tensor:
+    """Stacked-expert prefill version: dequantize (E, K, N) once, then one
+    batched product over E. Same contract as :func:`qmm_grouped_ref`."""
+    k = w_packed.shape[-2] * (8 // bits)
+    codes = unpack_int(w_packed, bits, k, axis=-2).to(torch.float32)
+    g_rows = scales.shape[-2]
+    cg = codes.reshape(*codes.shape[:-2], g_rows, k // g_rows, codes.shape[-1])
+    w = (cg * scales[..., :, None, :]).reshape(codes.shape)
+    return torch.einsum("emk,ekn->emn", x.to(torch.float32), w).to(x.dtype)

@@ -96,6 +96,23 @@ def describe_qgemv(x_shape, wp_shape, scales_shape, *, bits: int) -> dict:
     return sp
 
 
+def describe_qmatmul_grouped(x_shape, wp_shape, scales_shape, *, bits: int) -> dict:
+    """Validate a ``qmatmul_grouped`` (stacked experts) launch: x (E, M, K)
+    @ dequant(wp (E, K*bits/8, N), scales (E, G, N)) -> (E, M, N). Any M
+    and N (the kernel masks them); the expert axes must agree."""
+    name = "qmatmul_grouped"
+    if not (len(x_shape) == 3 and len(wp_shape) == 3 and len(scales_shape) == 3):
+        raise KernelSpecError(f"{name}: x {tuple(x_shape)}, codes {tuple(wp_shape)} "
+                              f"and scales {tuple(scales_shape)} must all be 3-D")
+    E = x_shape[0]
+    _check(wp_shape[0] == E and scales_shape[0] == E and E >= 1, name,
+           f"expert axes disagree: x E={E}, codes {tuple(wp_shape)}, "
+           f"scales {tuple(scales_shape)}")
+    sp = _describe(name, x_shape[1:], wp_shape[1:], scales_shape[1:], bits)
+    sp["E"] = E
+    return sp
+
+
 def describe_kv_decode(q_shape, k8_shape, v8_shape=None, kscale_shape=None,
                        vscale_shape=None, kpos_shape=None, cur_shape=None) -> dict:
     """Validate a ``kv_decode`` (int8-KV decode attention) launch: q (B, H,

@@ -1,4 +1,4 @@
-"""Decoder-only LM over the stack/sub-layer graph: the dense family.
+"""Decoder-only LM over the stack/sub-layer graph: dense and MoE families.
 
 A model is: embed -> [stack_0 ... stack_k] -> final norm -> head. Each
 *stack* is ``n`` identical blocks whose params are stacked along a
@@ -6,9 +6,10 @@ leading layer dim (the same tree layout as the JAX package's ``LM``, so
 params and artifacts map key for key). The layer loop is written out in
 place of ``lax.scan``: layer ``l`` reads the views ``leaf[l]``.
 
-This slice covers the dense family (uniform, sliding-window and
-local:global attention). The other families raise ``NotImplementedError``
-naming the ROADMAP item that brings them.
+The port covers the dense family (uniform, sliding-window and
+local:global attention) and the MoE family (a ``dense0`` stack of
+leading dense-FFN layers, then a ``moe`` stack). The other families raise
+``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -22,13 +23,13 @@ from ..interop import tree_map
 from . import attention as attn_mod
 from . import common as cm
 from . import mlp as mlp_mod
+from . import moe as moe_mod
 from .common import NO_QUANT, Ctx, QuantHook
 
 Params = Any
 
-# ROADMAP items that bring the families this slice does not cover
+# ROADMAP items that bring the families the port does not cover yet
 _FAMILY_TODO = {
-    "moe": "the MoE slice (ROADMAP module 12)",
     "ssm": "the other-families slice (ROADMAP module 14: xLSTM)",
     "hybrid": "the other-families slice (ROADMAP module 14: hymba)",
     "vlm": "the other-families slice (ROADMAP module 14: VLM cross-attention)",
@@ -40,7 +41,7 @@ _FAMILY_TODO = {
 class SubLayer:
     mixer: str  # 'attn' (the only mixer of the dense family)
     window: Optional[int] = None
-    ffn: Optional[str] = None  # 'mlp' | None
+    ffn: Optional[str] = None  # 'mlp' | 'moe' | None
     causal: bool = True
     d_ff: int = 0  # mlp width override (0 -> cfg.d_ff)
 
@@ -53,6 +54,17 @@ class StackDef:
 
 
 def build_stacks(cfg: ArchConfig) -> list[StackDef]:
+    if cfg.family == "moe" and not cfg.enc_dec:
+        if cfg.moe is None:
+            raise ValueError(f"{cfg.name}: the 'moe' family needs a MoEArch")
+        stacks = []
+        if cfg.moe.first_k_dense:
+            stacks.append(StackDef(
+                "dense0", cfg.moe.first_k_dense,
+                (SubLayer("attn", ffn="mlp", d_ff=cfg.moe.first_dense_ff),)))
+        stacks.append(StackDef("moe", cfg.n_layers - cfg.moe.first_k_dense,
+                               (SubLayer("attn", ffn="moe"),)))
+        return stacks
     if cfg.family != "dense" or cfg.enc_dec:
         todo = _FAMILY_TODO.get(cfg.family, "a later slice of the port")
         raise NotImplementedError(
@@ -80,6 +92,12 @@ def _mlp_spec(cfg: ArchConfig, sub: SubLayer) -> mlp_mod.MLPSpec:
     return mlp_mod.MLPSpec(cfg.d_model, sub.d_ff or cfg.d_ff, cfg.mlp_kind)
 
 
+def _moe_spec(cfg: ArchConfig, impl: str) -> moe_mod.MoESpec:
+    m = cfg.moe
+    return moe_mod.MoESpec(cfg.d_model, m.d_ff_expert, m.n_experts, m.top_k,
+                           n_shared=m.n_shared, impl=impl)
+
+
 def _norm_init(cfg: ArchConfig, device):
     if cfg.norm == "rms":
         return cm.rmsnorm_init(cfg.d_model, device)
@@ -98,9 +116,10 @@ def _layer(tree, i: int):
 class LM:
     """Decoder-only language model over the stack/sub-layer graph."""
 
-    def __init__(self, cfg: ArchConfig):
+    def __init__(self, cfg: ArchConfig, *, moe_impl: str = "dense"):
         self.cfg = cfg
         self.stacks = build_stacks(cfg)
+        self.moe_impl = moe_impl
 
     # -- init ---------------------------------------------------------------
 
@@ -111,6 +130,9 @@ class LM:
         if sub.ffn == "mlp":
             p["norm2"] = _norm_init(cfg, gen.device)
             p["mlp"] = mlp_mod.init(gen, _mlp_spec(cfg, sub))
+        elif sub.ffn == "moe":
+            p["norm2"] = _norm_init(cfg, gen.device)
+            p["moe"] = moe_mod.init(gen, _moe_spec(cfg, self.moe_impl))
         return p
 
     def init(self, gen: torch.Generator) -> Params:
@@ -132,22 +154,30 @@ class LM:
     # -- sub-layer / block application ---------------------------------------
 
     def _apply_sub(self, ctx: Ctx, sub: SubLayer, idx: int, p: Params,
-                   x: torch.Tensor) -> torch.Tensor:
+                   x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         sc = ctx.scoped(f"sub{idx}")
         h = _norm(cfg, p["norm1"], x)
         x = x + attn_mod.apply(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub), h)
         if sub.ffn == "mlp":
             h = _norm(cfg, p["norm2"], x)
             x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub), h)
-        return x
+        elif sub.ffn == "moe":
+            h = _norm(cfg, p["norm2"], x)
+            spec = _moe_spec(cfg, self.moe_impl)
+            x = x + moe_mod.apply(sc.scoped("moe"), p["moe"], spec, h)
+            aux = aux + moe_mod.aux_loss(sc.scoped("moe"), p["moe"], spec, h)
+        return x, aux
 
     def apply_block(self, ctx: Ctx, stack: StackDef, p: Params,
                     x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """One block (one layer's params ``p``); returns (x, moe aux = 0)."""
+        """One block (one layer's params ``p``); returns (x, moe aux)."""
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, sub in enumerate(stack.subs):
-            x = self._apply_sub(ctx, sub, i, p[f"sub{i}"], x)
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = self._apply_sub(ctx, sub, i, p[f"sub{i}"], x)
+            aux = aux + a
+        return x, aux
 
     # -- full forward ---------------------------------------------------------
 
@@ -230,6 +260,10 @@ class LM:
         x = x + out
         if sub.ffn == "mlp":
             x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub),
+                                  _norm(cfg, p["norm2"], x))
+        elif sub.ffn == "moe":
+            x = x + moe_mod.apply(sc.scoped("moe"), p["moe"],
+                                  _moe_spec(cfg, self.moe_impl),
                                   _norm(cfg, p["norm2"], x))
         return x, cache
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels (qmatmul, kv_decode) against their plain PyTorch
-versions, on the card, and the serve engine's kernel path.
+"""The CUDA kernels (qgemv, qmatmul, qmatmul_grouped, kv_decode) against
+their plain PyTorch versions, on the card, and the serve engine's and the
+MoE layer's kernel paths.
 
 The kernels have no CPU mode, so every test here is marked
 ``requires_cuda`` and skips without a GPU. This file imports neither JAX
@@ -98,10 +99,10 @@ def test_qmm_auto_dispatch_launches_kernels(cuda):
     check(ops.qmm(x, qw), ref.qgemv_ref(x, wp, s, 4))
     xb = torch.cat([x] * 8)
     check(ops.qmm(xb, qw), ref.qmatmul_ref(xb, wp, s, 4))
-    assert kernel.LAUNCHES == {"qgemv": 1, "qmatmul": 1}
+    assert kernel.LAUNCHES == {"qgemv": 1, "qmatmul": 1, "qmatmul_grouped": 0}
     # the plain backend launches nothing
     ops.qmm(x, qw, backend="torch")
-    assert kernel.LAUNCHES == {"qgemv": 1, "qmatmul": 1}
+    assert kernel.LAUNCHES == {"qgemv": 1, "qmatmul": 1, "qmatmul_grouped": 0}
 
 
 def test_wrappers_reject_bad_operands(cuda):
@@ -112,6 +113,88 @@ def test_wrappers_reject_bad_operands(cuda):
         kernel.qgemv(x.double(), wp, s, bits=4)
     with pytest.raises(ValueError, match="contiguous"):
         kernel.qmatmul(torch.cat([x] * 2, 1)[:, ::2], wp, s, bits=4)
+
+
+def grouped_case(bits, e, k, n, g, m, device, seed=0, container=None):
+    """Stacked codes (e, k*cbits/8, n) in a ``container``-bit field (default
+    ``bits``), scales (e, g, n), x (e, m, k)."""
+    rng = np.random.default_rng(seed)
+    lo, hi = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+    codes = torch.from_numpy(rng.integers(lo, hi + 1, size=(e, k, n)).astype(np.int8))
+    wp = pack_int(codes, container or bits, axis=-2)
+    s = rng.uniform(0.005, 0.02, size=(e, g, n)).astype(np.float32)
+    x = rng.standard_normal((e, m, k)).astype(np.float32)
+    return (torch.from_numpy(x).to(device), wp.to(device),
+            torch.from_numpy(s).to(device))
+
+
+def grouped_plain(x, wp, s, bits):
+    return (ref.qmm_grouped_ref if x.shape[1] <= ops.DECODE_M_MAX
+            else ref.qmm_grouped_dense_ref)(x, wp, s, bits)
+
+
+# (bits, container, e, k, n, g): deepseek-moe-16b's expert shapes at E 8,
+# ragged N (d_ff 96 of its reduced config, 1408 = 22 x 64), groups of 64,
+# a W3 code in an int8 container, odd N (no 32-bit loads)
+GROUPED = [(4, 4, 8, 2048, 1408, 1), (4, 4, 8, 1408, 2048, 1), (2, 2, 4, 64, 96, 1),
+           (4, 4, 4, 256, 96, 4), (2, 2, 3, 128, 200, 2), (8, 8, 3, 96, 64, 1),
+           (3, 8, 3, 128, 96, 1), (4, 4, 2, 128, 77, 1)]
+
+
+@pytest.mark.parametrize("bits,container,e,k,n,g", GROUPED)
+@pytest.mark.parametrize("m", [1, 4, 8, 9, 64])
+def test_qmatmul_grouped_kernel_matches_plain(cuda, bits, container, e, k, n, g, m):
+    x, wp, s = grouped_case(bits, e, k, n, g, m, cuda, container=container)
+    before = kernel.LAUNCHES["qmatmul_grouped"]
+    got = kernel.qmatmul_grouped(x, wp, s, bits=container)
+    assert kernel.LAUNCHES["qmatmul_grouped"] == before + 1
+    assert got.shape == (e, m, n)
+    check(got, grouped_plain(x, wp, s, container))
+
+
+def test_qmatmul_grouped_is_deterministic(cuda):
+    for m in (8, 64):
+        x, wp, s = grouped_case(4, 16, 1024, 1408, 1, m, cuda)
+        a = kernel.qmatmul_grouped(x, wp, s, bits=4)
+        b = kernel.qmatmul_grouped(x, wp, s, bits=4)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+
+def test_qmm_grouped_launches_kernel_and_rejects(cuda):
+    x, wp, s = grouped_case(4, 4, 128, 64, 1, 6, cuda)
+    qw = ops.QuantizedLinear(wp, s, 4, 128)
+    before = kernel.LAUNCHES["qmatmul_grouped"]
+    xb = x.reshape(4, 2, 3, 128).transpose(0, 1)  # (B 2, E 4, C 3, K)
+    got = ops.qmm(xb, qw)
+    assert kernel.LAUNCHES["qmatmul_grouped"] == before + 1
+    check(got, ops.qmm(xb, qw, backend="torch"))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kernel.qmatmul_grouped(x.cpu(), wp, s, bits=4)
+    with pytest.raises(TypeError, match="float32"):
+        kernel.qmatmul_grouped(x.double(), wp, s, bits=4)
+
+
+def test_moe_capacity_combine_is_deterministic(cuda):
+    """The capacity path (dispatch, grouped kernel, one-hot combine) gives
+    the same bits on every run, W4 and FP."""
+    from repro_torch.deploy import quantize_tree
+    from repro_torch.models import moe
+    from repro_torch.models.common import Ctx
+
+    spec = moe.MoESpec(256, 128, 16, 4, n_shared=1, impl="capacity")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = moe.init(gen, spec)
+    x = torch.randn((4, 48, 256), generator=gen, device=cuda)
+    ctx = Ctx(cfg=None, positions=torch.zeros((4, 48), dtype=torch.int32, device=cuda))
+    for params in (p, quantize_tree(p, 4)):
+        runs = [moe.apply(ctx, params, spec, x) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert all(torch.equal(runs[0], r) for r in runs[1:])
+    kernel.reset_launches()
+    with torch.inference_mode():
+        moe.apply(ctx, quantize_tree(p, 4), spec, x)
+    assert kernel.LAUNCHES["qmatmul_grouped"] == 3
 
 
 def kv_case(B, H, K, hd, S, device, *, seed=0, holes=False, empty_row=False):
@@ -230,3 +313,29 @@ def test_engine_kernel_path_on_card(cuda):
     eng.assert_no_leaks()
     assert kv_kernel.LAUNCHES["kv_decode"] > 0
     assert kernel.LAUNCHES["qgemv"] > 0 and kernel.LAUNCHES["qmatmul"] > 0
+
+
+def test_moe_engine_kernel_path_on_card(cuda):
+    """A reduced deepseek-moe-16b W4 engine run (capacity routing) over an
+    int8 pool launches the grouped kernel and kv_decode and hands every
+    page back."""
+    from repro_torch.deploy import rtn_artifact
+    from repro_torch.models import get_model
+    from repro_torch.serve_engine import EngineConfig, ServeEngine
+
+    cfg, model = get_model("deepseek_moe_16b", reduced=True, moe_impl="capacity")
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    art = rtn_artifact(params, 4, None, cfg=cfg)
+    eng = ServeEngine(model, art.params, EngineConfig(
+        num_slots=3, page_size=4, num_pages=49, max_len=32, prefill_chunk=16))
+    eng.compile()
+    kernel.reset_launches()
+    kv_kernel.reset_launches()
+    rng = np.random.default_rng(11)
+    for uid, n in enumerate((5, 13, 9)):
+        eng.submit(rng.integers(0, cfg.vocab, size=n), 6, uid=uid)
+    eng.run()
+    assert all(r.state == "done" for r in eng.requests.values())
+    eng.assert_no_leaks()
+    assert kv_kernel.LAUNCHES["kv_decode"] > 0
+    assert kernel.LAUNCHES["qmatmul_grouped"] > 0

@@ -2,7 +2,8 @@
 (repro_torch.serve_engine) vs the JAX package's ``repro.serve_engine``,
 and the port's engine under pressure (``test_serve_pressure.py``'s
 behaviours: overcommit with bit-exact preemption resume, victim order,
-deadlines, typed rejects, stall reporting, drain).
+deadlines, typed rejects, stall reporting, drain), and the engine on
+reduced deepseek-moe-16b (W4 experts on the grouped qmm tier, int8 pool).
 
 Both engines serve the same reduced brecq-lm-100m weights (made with
 numpy, carried with ``params_from_numpy``; the linear weights are scaled
@@ -122,6 +123,66 @@ def test_staggered_equals_sequential_bitwise(weights, served, kv_dtype):
     seq.assert_no_leaks()
 
 
+@pytest.fixture(scope="module")
+def moe_w4():
+    """Reduced deepseek-moe-16b, W4, per moe_impl: {impl: (jax (model,
+    params, hook), port (model, params, hook))}; linear weights at 3x."""
+    from test_torch_models import np_params as model_params
+
+    jcfg, jmodel = j_get_model("deepseek_moe_16b", reduced=True)
+    p = jax.tree_util.tree_map_with_path(
+        lambda path, a: a * 3 if path[-1].key == "w" else a,
+        model_params(jmodel, seed=3))
+    jart = j_rtn_artifact(jax.tree.map(jnp.asarray, p), 4, None, cfg=jcfg)
+    tart = rtn_artifact(params_from_numpy(p), 4, None, cfg=jcfg)
+    out = {}
+    for impl in ("dense", "capacity"):
+        _, jm = j_get_model("deepseek_moe_16b", reduced=True, moe_impl=impl)
+        _, tm = get_model("deepseek_moe_16b", reduced=True, moe_impl=impl)
+        out[impl] = ((jm, jart.params, jart.hook()), (tm, tart.params, tart.hook()))
+    return out
+
+
+def moe_staggered(pkg, model, params, quant, backend):
+    eng = pkg.ServeEngine(model, params, pkg.EngineConfig(
+        kv_dtype="int8", backend=backend, **ECFG), quant=quant)
+    ps, nxt = prompts(vocab=256), 0
+    while nxt < len(ps) or eng.pending():
+        while nxt < len(ps) and ARRIVALS[nxt] <= eng.tick:
+            eng.submit(ps[nxt], MAX_NEW[nxt], uid=nxt)
+            nxt += 1
+        eng.step()
+    return eng
+
+
+@pytest.mark.parametrize("impl", ["dense", "capacity"])
+def test_moe_engine_matches_jax(moe_w4, impl):
+    """Reduced deepseek-moe-16b, W4, int8 pool: the same tokens as the JAX
+    engine (expert matmuls on the grouped qmm tier), and for the capacity
+    impl staggered serving equals sequential serving bit for bit."""
+    jw, tw = moe_w4[impl]
+    jeng = moe_staggered(jse, *jw, "xla")
+    teng = moe_staggered(tse, *tw, "torch")
+    assert tokens(teng) == tokens(jeng)
+    assert len({t for g in tokens(teng).values() for t in g}) > 3
+    for uid, req in teng.requests.items():
+        assert req.state == "done" and len(req.generated) == MAX_NEW[uid]
+        np.testing.assert_allclose(np.stack(req.logits),
+                                   np.stack(jeng.requests[uid].logits),
+                                   atol=LOGIT_TOL["int8"], rtol=0)
+    teng.assert_no_leaks()
+    if impl == "capacity":
+        seq = tse.ServeEngine(*tw[:2], tse.EngineConfig(kv_dtype="int8", **ECFG),
+                              quant=tw[2])
+        for uid, p in enumerate(prompts(vocab=256)):
+            seq.submit(p, MAX_NEW[uid], uid=uid)
+            seq.run()
+        assert tokens(seq) == tokens(teng)
+        for uid in teng.requests:
+            np.testing.assert_array_equal(np.stack(teng.requests[uid].logits),
+                                          np.stack(seq.requests[uid].logits))
+
+
 def test_page_pool_matches_jax():
     """The same op sequence gives the same page ids and the same
     exceptions in both allocators."""
@@ -184,7 +245,7 @@ def test_rejects_oversized_and_non_attention(weights):
     eng = tse.ServeEngine(model, tp, tse.EngineConfig(kv_dtype="int8", **ECFG))
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.zeros(30, np.int32), 10)
-    # the port carries only the dense family: a non-attention arch stops at
+    # the port carries no recurrent family: a non-attention arch stops at
     # get_model, and a stack with a recurrent mixer stops at the pool
     with pytest.raises(KeyError, match="xlstm_350m"):
         get_model("xlstm_350m", reduced=True)

@@ -143,9 +143,9 @@ def test_local_global_stack_matches_jax():
 def test_other_families_name_their_slice():
     from repro_torch.configs.base import ArchConfig
 
-    cfg = ArchConfig(name="x", family="moe", n_layers=2, d_model=8, n_heads=2,
+    cfg = ArchConfig(name="x", family="ssm", n_layers=2, d_model=8, n_heads=2,
                      n_kv_heads=2, d_ff=8, vocab=16)
-    with pytest.raises(NotImplementedError, match="MoE slice"):
+    with pytest.raises(NotImplementedError, match="ROADMAP module 14: xLSTM"):
         LM(cfg)
     with pytest.raises(KeyError, match="unknown arch"):
         get_model("whisper_small")
