@@ -3,8 +3,8 @@
 
 Drives the port (``src/repro_torch``) only, never the JAX package:
 
-  1. build   compile the qmatmul and kvattn CUDA libraries from the
-             checkout's sources, one nvcc each, both at once; print each
+  1. build   compile the qmatmul, kvattn and fakequant CUDA libraries from
+             the checkout's sources, one nvcc each, all at once; print each
              one's ptxas registers and spills
   2. parity  hold the ``qgemv`` and ``qmatmul`` kernels against their plain
              PyTorch versions on the card over the serving shapes of
@@ -45,7 +45,19 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              expected grouped launches counted, the plain path replays the
              tokens) and the engine (8 slots, int8 pool; staggered ==
              sequential bit for bit on 4 streams)
-  7. report  one JSON line of kernels, the card's name and power limit, and
+  7. calib   hold ``fakequant`` (K5) against its plain version at
+             brecq-lm-100m's linear shapes and a ragged one (W2/W4, (1, N)
+             and (K, N) scales; hard bit for bit, soft within
+             1e-6*max|ref|) and catch a deliberately wrong one; time it;
+             calibrate brecq-lm-100m at full width and depth (random
+             weights from seed 0, W2, block reconstruction with the
+             streamed Fisher) through ``repro_torch.core.quantize`` with
+             every K5 call shadowed by its plain version and its launches
+             counted; BRECQ-W2 logits closer to FP than RTN-W2's on held-out
+             sequences; export, save, load (weights equal to params_q bit
+             for bit) and serve the artifact through the fixed batch
+             (W2 packed, plain path replays the tokens)
+  8. report  one JSON line of kernels, the card's name and power limit, and
              the final ``{"ok": true, "device": ...}`` line
 
 Exits non-zero on any failure, and when no CUDA device is available.
@@ -125,6 +137,15 @@ MOE_TIMED_M = (8, 64)  # decode, fixed-batch prefill
 MOE_CASES = [(4, None, 2048, 1408), (4, None, 1408, 2048), (2, None, 2048, 1408),
              (4, 128, 2048, 1408), (3, None, 1408, 2048), (4, None, 2048, 200)]
 MOE_LAYERS = 4  # depth cut of deepseek-moe-16b: its dense layer + 3 MoE layers
+
+# fakequant (K5) parity shapes: brecq-lm-100m's three linear shapes and a
+# ragged one (N % 4 != 0: the scalar path)
+FQ_SHAPES = list(SLICE_SHAPES) + [(100, 300), (100, 301)]
+# calibration of brecq-lm-100m at full width and depth: 32 sequences x 128
+# tokens, W2, 200 iterations per block, minibatch 8 (the other fields are
+# ReconConfig's defaults: block units, streamed Fisher, bf16 streams, guard)
+CALIB_SEQS, CALIB_LEN, CALIB_ITERS = 32, 128, 200
+HELDOUT_SEQS = 8
 MOE_ENGINE_STREAMS = 8
 
 
@@ -190,7 +211,7 @@ def phase_build(kernels) -> dict:
         for line in info["ptxas"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name} ptxas: {line.strip()}")
-    print(f"[build] both libraries ready in {time.perf_counter() - t0:.2f}s")
+    print(f"[build] {len(kernels)} libraries ready in {time.perf_counter() - t0:.2f}s")
     return infos
 
 
@@ -903,7 +924,218 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
                                        "distinct_tokens_per_stream": edistinct}}
 
 
-def kernel_line(errs, rows, kv_err, kv_timed, launches, moe) -> dict:
+def fq_bound(k: int, n: int, s_rows: int) -> tuple[float, str]:
+    """Least time (ms) of one fakequant call on (k, n) f32 weights: w and v
+    read once, the (s_rows, n) scale read once, the output written once,
+    against 7 f32 operations per weight (divide, floor, compare, add, two
+    clip compares, multiply)."""
+    t_bytes = 4 * (3 * k * n + s_rows * n) / PEAK_BYTES_S * 1e3
+    t_ops = 7 * k * n / PEAK_F32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_fq_kernel(torch, fq_kernel, fq_ref) -> tuple[float, list]:
+    """K5 vs its plain version on the card: hard bit for bit, soft within
+    1e-6 * max|ref|; a kernel that clips at qmax - 1 must be caught; times
+    of the hardened forward (W2, (1, N) scales) at the block's shapes."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    soft_err, cases, rows = 0.0, 0, []
+    for bits in (2, 4):
+        qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+        for (k, n) in FQ_SHAPES:
+            w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+            v = torch.randn((k, n), generator=gen, device=dev) * 2
+            s_row = torch.clamp_min(w.abs().amax(0, keepdim=True) / qmax, 1e-8)
+            jitter = torch.rand((k, n), generator=gen, device=dev) + 0.5
+            for s in (s_row, (s_row * jitter).contiguous()):
+                for hard in (True, False):
+                    out = fq_kernel.fakequant(w, v, s, qmin=qmin, qmax=qmax, hard=hard)
+                    bad = fq_kernel.fakequant(w, v, s, qmin=qmin, qmax=qmax - 1,
+                                              hard=hard)
+                    want = fq_ref.fakequant_ref(w, v, s, qmin, qmax, hard)
+                    torch.cuda.synchronize()
+                    what = (f"fakequant W{bits} {'hard' if hard else 'soft'} "
+                            f"K={k} N={n} scale {tuple(s.shape)}")
+                    tol = 1e-6 * float(want.abs().max())
+                    err = float((out - want).abs().max())
+                    bad_err = float((bad - want).abs().max())
+                    cases += 1
+                    if hard and not torch.equal(out, want):
+                        fail(f"{what}: not bit-identical to the plain version "
+                             f"(max abs err {err:.3e})")
+                    if not math.isfinite(err) or err > tol:
+                        fail(f"{what}: max abs err {err:.3e} > tol {tol:.3e}")
+                    if (hard and torch.equal(bad, want)) or bad_err <= tol:
+                        fail(f"{what}: a kernel clipping at qmax - 1 passes the "
+                             f"check (err {bad_err:.3e})")
+                    if not hard:
+                        soft_err = max(soft_err, err)
+                    if (k, n) in SLICE_SHAPES and bits == 2 and hard and s is s_row:
+                        rows.append(_time_fq(torch, fq_kernel, fq_ref, w, v, s,
+                                             qmin, qmax))
+    print(f"[fakequant] {cases} kernel-vs-plain cases: hard bit-identical, soft "
+          f"max abs err {soft_err:.3e} (limit 1e-6*max|ref|); a kernel clipping "
+          f"at qmax - 1 caught in every case")
+    return soft_err, rows
+
+
+def _time_fq(torch, fq_kernel, fq_ref, w, v, s, qmin, qmax) -> dict:
+    k, n = w.shape
+    copies = max(2, math.ceil(L2_FLUSH_BYTES / (3 * w.numel() * 4)))
+    sets = [(w.clone(), v.clone(), s) for _ in range(copies)]
+    t_kernel = graph_time_ms(torch, lambda a, b, c: fq_kernel.fakequant(
+        a, b, c, qmin=qmin, qmax=qmax, hard=True), sets)
+    t_plain = graph_time_ms(torch, lambda a, b, c: fq_ref.fakequant_ref(
+        a, b, c, qmin, qmax, True), sets)
+    del sets
+    b_ms, b_by = fq_bound(k, n, s.shape[0])
+    print(f"[time] fakequant hard W2 K={k:4d} N={n:4d}: kernel {t_kernel*1e3:8.2f} us  "
+          f"plain {t_plain*1e3:8.2f} us  bound {b_ms*1e3:6.2f} us ({b_by})")
+    return {"K": k, "N": n, "ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def _shadowed_fq(torch, fq_kernel, fq_ref, log: dict):
+    """K5 with every call held against its plain version on the call's own
+    inputs (bit for bit when hard)."""
+    orig = fq_kernel.fakequant
+
+    def fn(w, v, scale, *, qmin, qmax, hard):
+        out = orig(w, v, scale, qmin=qmin, qmax=qmax, hard=hard)
+        want = fq_ref.fakequant_ref(w, v, scale, qmin, qmax, hard)
+        log["calls"] += 1
+        if not (torch.equal(out, want) if hard else
+                float((out - want).abs().max()) <= 1e-6 * float(want.abs().max())):
+            log["mismatches"] += 1
+        return out
+
+    return orig, fn
+
+
+def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> dict:
+    """BRECQ calibration of brecq-lm-100m at full width and depth through
+    ``repro_torch.core.quantize``, K5 launches counted and shadowed; the
+    quality gate; export, load and serve of the artifact."""
+    from repro_torch.core import ReconConfig, adaround, quantize, reconstruction
+    from repro_torch.data import Corpus, CorpusConfig, make_batches
+    from repro_torch.deploy import QuantizedArtifact, dequant_leaf, export
+    from repro_torch.models import get_model
+
+    cfg, model = get_model("brecq_lm_100m")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
+    calib = make_batches(corpus, CALIB_SEQS // 8, 8, CALIB_LEN, seed=1)
+    held = {k: t.cuda() for k, t in
+            make_batches(corpus, 1, HELDOUT_SEQS, CALIB_LEN, seed=2)[0].items()}
+    rc = ReconConfig(w_bits=2, iters=CALIB_ITERS, calib_bs=8)
+
+    shadow = {"calls": 0, "mismatches": 0}
+    orig, fq_kernel.fakequant = _shadowed_fq(torch, fq_kernel, fq_ref, shadow)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in (fq_kernel, qm_kernel):  # the calibration path runs K5 only
+            k.reset_launches()
+        t0 = time.perf_counter()
+        res = quantize(model, params, calib, rc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fq_kernel.LAUNCHES["fakequant"]
+        others = dict(qm_kernel.LAUNCHES)
+    finally:
+        fq_kernel.fakequant = orig
+    peak = torch.cuda.max_memory_allocated()
+    st = res.stats
+    retries = st["unit_retries"]
+    expect = cfg.n_layers * 2 * 7 + cfg.n_layers * 7 + 14 * retries
+    print(f"[calib] {cfg.name} full width and depth ({cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}), W2, {CALIB_SEQS}x{CALIB_LEN} tokens, iters "
+          f"{rc.iters}, calib_bs {rc.calib_bs}: calib_wall_s {st['calib_wall_s']:.2f}, "
+          f"fisher_wall_s {st['fisher_wall_s']:.2f}, calib_iters_per_s "
+          f"{st['calib_iters_per_s']:.1f}, calib_peak_bytes {st['calib_peak_bytes']} "
+          f"(device peak {peak} B); wall {wall:.2f}s")
+    print(f"[calib] fakequant launches {launches} (expected {expect} = "
+          f"{cfg.n_layers} units x 2 hard programs x 7 + {cfg.n_layers * 7} in bake "
+          f"+ 14 x {retries} retries); shadowed "
+          f"calls {shadow['calls']}, mismatches {shadow['mismatches']}; unit "
+          f"retries {retries}, fallbacks {st['unit_fallbacks']}, OOM halvings "
+          f"{st['unit_oom_halvings']}; unit cache {st['unit_cache']}")
+    if launches != expect:
+        fail(f"calibration launched fakequant {launches} times, expected {expect}")
+    if any(others.values()):
+        fail(f"calibration launched packed-matmul kernels: {others}")
+    if shadow["mismatches"] or shadow["calls"] != launches:
+        fail(f"fakequant against its plain version during calibration: {shadow}")
+    for u in st["units"]:
+        print(f"[calib] unit {u['unit']}: rtn_recon_mse {u['rtn_recon_mse']:.4e} "
+              f"final_recon_mse {u['final_recon_mse']:.4e} loss {u['loss_first']:.4e}"
+              f" -> {u['loss_last']:.4e} retries {u['retries']} fallback "
+              f"{u['fallback']}")
+
+    # quality gate on held-out sequences: logits MSE against FP
+    weights = reconstruction.enumerate_weights(
+        model, params, {"tokens": held["tokens"][:1]})
+    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
+    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
+    v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
+    with torch.no_grad():
+        rtn_params = reconstruction.bake(model, params, blocks, v_rtn, embed)
+        fp = model.forward(params, held)[0]
+        mse = {name: float(torch.mean((model.forward(p, held)[0] - fp) ** 2))
+               for name, p in (("brecq", res.params_q), ("rtn", rtn_params))}
+    del rtn_params
+    print(f"[calib] held-out logits MSE vs FP ({HELDOUT_SEQS}x{CALIB_LEN}): BRECQ-W2 "
+          f"{mse['brecq']:.4e}, RTN-W2 {mse['rtn']:.4e} (ratio "
+          f"{mse['brecq'] / mse['rtn']:.3f})")
+    if not all(math.isfinite(x) for x in mse.values()) or mse["brecq"] >= mse["rtn"]:
+        fail(f"BRECQ-W2 logits are not closer to FP than RTN-W2's: {mse}")
+
+    # export, save, load; dequantized block weights are params_q bit for bit
+    art_dir = workdir / "calib_w2"
+    export(model, res).save(str(art_dir))
+    art = QuantizedArtifact.load(str(art_dir)).to("cuda")
+    serve._check_manifest(art.manifest, cfg)
+    for path in blocks:
+        sname, ri = path.split("/")[0].rsplit(".", 1)
+        node, qnode = art.params[sname], res.params_q[sname]
+        for k in path.split("/")[1:]:
+            node, qnode = node[k], qnode[k]
+        want = qnode["w"][int(ri)]
+        got = dequant_leaf(node["w"][int(ri)], node["qscale"][int(ri)], want.shape[0])
+        if not torch.equal(got, want):
+            fail(f"the loaded artifact's {path} differs from params_q")
+    print(f"[calib] artifact {art.nbytes()} B saved and loaded verified; the "
+          f"{len(blocks)} block weights equal params_q bit for bit")
+    prompts = corpus.sample(8, 64, seed=7)
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    qm_kernel.reset_launches()
+    gen_toks, sst = serve.run_prefill_decode(
+        model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
+        hook=art.hook(), tag="calib W2")
+    served = dict(qm_kernel.LAUNCHES)
+    if served["qgemv"] == 0 or served["qmatmul"] == 0:
+        fail(f"serving the calibrated artifact missed a kernel: {served}")
+    err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen_toks,
+                                       "calib W2")
+    print(f"[calib serve] kernel launches {served}; logits kernel vs plain: max abs "
+          f"err {err:.3e} (tol {tol:.3e}); greedy token agreement {agree:.4f}; "
+          f"prefill {sst['prefill_tok_s']:.1f} tok/s, decode {sst['tok_s']:.1f} tok/s")
+    keep = ("calib_wall_s", "fisher_wall_s", "calib_iters_per_s", "calib_peak_bytes",
+            "calib_peak_bytes_detail", "unit_retries", "unit_fallbacks",
+            "unit_oom_halvings", "unit_cache")
+    return {"launches": launches, "expected_launches": expect, "shadow": shadow,
+            "stats": {k: st[k] for k in keep}, "device_peak_bytes": peak,
+            "wall_s": wall, "logits_mse": mse,
+            "units": [{k: u[k] for k in ("unit", "rtn_recon_mse", "final_recon_mse",
+                                         "loss_first", "loss_last", "retries",
+                                         "fallback", "opt_wall_s")}
+                      for u in st["units"]],
+            "serve": {"launches": served, "logits_max_abs_err": err,
+                      "token_agreement": agree, "stats": sst}}
+
+
+def kernel_line(errs, rows, kv_err, kv_timed, launches, moe, fq) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
@@ -951,6 +1183,18 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, moe) -> dict:
         "shapes": f"one deepseek-moe-16b MoE layer: 2x E{MOE_E} 2048x1408, 1x "
                   f"E{MOE_E} 1408x2048; W4 per-channel; M=8 per expert",
         "launches_from": "the MoE fixed-batch serve"})
+    tot = {key: sum(SLICE_SHAPES[(r["K"], r["N"])] * r[key] for r in fq["rows"])
+           for key in ("ms", "plain_ms", "bound_ms")}
+    out.append({
+        "name": "fakequant", "route": "cuda",
+        "source": "src/repro_torch/kernels/fakequant/csrc/fakequant.cu",
+        "replaces": "src/repro/kernels/fakequant/kernel.py:38",
+        "launches": fq["launches"], "max_abs_err": fq["err"], "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+        "bound_by": fq["rows"][0]["bound_by"], "library_ms": None,
+        "shapes": "one brecq block's weights: 4x768x768, 2x768x2048, 1x2048x768; "
+                  "hard, W2, (1, N) scales",
+        "launches_from": "the full-width W2 calibration"})
     return {"kernels": out}
 
 
@@ -971,14 +1215,16 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.deploy import pack
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+    from repro_torch.kernels.fakequant import ref as fq_ref
     from repro_torch.kernels.kvattn import kernel as kv_kernel
     from repro_torch.kernels.kvattn import ref as kv_ref
     from repro_torch.kernels.qmatmul import kernel, ops, ref
     from repro_torch.launch import serve
 
     t_start = time.perf_counter()
-    kernels = {"qmatmul": kernel, "kvattn": kv_kernel}
-    build = phase_build(kernels)
+    kernels = {"qmatmul": kernel, "kvattn": kv_kernel}  # the serving paths'
+    build = phase_build({**kernels, "fakequant": fq_kernel})
     errs, rows = phase_parity(torch, kernel, ref, pack)
     kv_err, kv_timed = phase_kv(torch, kv_kernel, kv_ref)
     host = phase_host(torch, ops, pack)
@@ -987,10 +1233,13 @@ def main(argv=None) -> None:
         _, served = phase_serve(torch, kernel, ops, serve, Path(tmp))
         launches, engine = phase_engine(torch, serve, kernels, Path(tmp))
         moe = phase_moe_serve(torch, serve, kernels, Path(tmp))
+        fq_err, fq_rows = phase_fq_kernel(torch, fq_kernel, fq_ref)
+        calib = phase_calib(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
 
     line = kernel_line(errs, rows, kv_err, kv_timed, launches,
                        {"err": moe_err, "rows": moe_rows,
-                        "launches": moe["fixed"]["launches"]})
+                        "launches": moe["fixed"]["launches"]},
+                       {"err": fq_err, "rows": fq_rows, "launches": calib["launches"]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -1002,7 +1251,8 @@ def main(argv=None) -> None:
             {"device": device, "nvidia_smi": smi, "build": build,
              "timings": rows, "kv_timings": kv_timed, "host": host,
              "serve": served, "engine": engine, "moe_timings": moe_rows,
-             "moe": moe, "kernels": line["kernels"],
+             "moe": moe, "fakequant_timings": fq_rows, "calib": calib,
+             "kernels": line["kernels"],
              "wall_s": time.perf_counter() - t_start}, indent=1))
     print(json.dumps(line))
     print(smi)

@@ -3,7 +3,8 @@
 A sparse first-order Markov chain over the vocab (each token has k
 successors with zipf-ish weights) plus periodic copy segments. Samples
 are token-identical to the JAX package's ``repro.data.Corpus`` for the
-same (seed, host, step), so both packages serve the same prompts.
+same (seed, host, step), so both packages serve the same prompts and
+calibrate on the same batches (``make_batches``).
 """
 from __future__ import annotations
 
@@ -49,3 +50,22 @@ class Corpus:
                 cur = toks[:, t - 1]
             toks[:, t] = cur
         return toks
+
+
+def make_batches(corpus: Corpus, n_batches: int, batch: int, seq: int,
+                 *, seed: int, host: int = 0, start_step: int = 0,
+                 extras_fn=None) -> list[dict]:
+    """List of {'tokens': (B,S) int64} CPU batches (+ ``extras_fn(batch,
+    seq, step)``'s entries), token-identical to the JAX package's
+    ``make_batches``; ``quantize``/``evaluate`` move them to the params'
+    device."""
+    import torch
+
+    out = []
+    for i in range(n_batches):
+        toks = corpus.sample(batch, seq, seed=seed, host=host, step=start_step + i)
+        b = {"tokens": torch.from_numpy(toks.astype(np.int64))}
+        if extras_fn is not None:
+            b.update(extras_fn(batch, seq, start_step + i))
+        out.append(b)
+    return out

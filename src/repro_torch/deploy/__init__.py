@@ -2,13 +2,14 @@
 
   * :class:`QuantizedArtifact` — packed codes + scales + manifest, with
     verified save/load (schema v2 checksums).
+  * :func:`export` — a calibrated ``PTQResult`` -> artifact.
   * :func:`rtn_artifact` / :func:`quantize_tree` — calibration-free RTN.
   * Integrity helpers and the typed load errors.
 """
 from .artifact import (ARTIFACT_SCHEMA_VERSION,  # noqa: F401
                        ArtifactCorruptionError, ArtifactError,
                        ArtifactMismatchError, ArtifactSchemaError,
-                       QuantizedArtifact, rtn_artifact)
+                       QuantizedArtifact, export, rtn_artifact)
 from .pack import (code_layout, container_bits, content_digest,  # noqa: F401
                    dequant_leaf, leaf_crc32, pack_codes, quantize_tree,
                    rtn_bits_by_path, rtn_codes, rtn_pack_leaf, tree_bytes,

@@ -7,9 +7,11 @@ saved through the checkpoint layer with schema version 2 (per-leaf
 crc32 + content digest, verified on load). An artifact written by either
 package loads verified in the other.
 
-This slice ports saving, verified loading and the calibration-free RTN
-path; ``export()`` (from a calibrated result) and the LSQ ``ServeHook``
-come with calibration.
+Export is exact: baked fake-quant weights in ``PTQResult.params_q`` lie
+on the quantizer grid, so ``quantize_int`` recovers the integer codes
+bit-perfectly and ``dequant(pack(codes)) == params_q`` leaf for leaf.
+Artifacts calibrated with activation scales serve through the LSQ
+``ServeHook`` (:meth:`QuantizedArtifact.hook`).
 """
 from __future__ import annotations
 
@@ -20,9 +22,10 @@ from typing import Any, Optional
 import torch
 
 from ..ckpt.checkpoint import CheckpointManager, CheckpointReadError
+from ..core.quantizer import quantize_int
 from ..interop import tree_map
-from .pack import (content_digest, quantize_tree, rtn_bits_by_path,
-                   tree_bytes, tree_checksums)
+from .pack import (content_digest, pack_codes, quantize_tree,
+                   rtn_bits_by_path, tree_bytes, tree_checksums)
 
 Params = Any
 
@@ -80,14 +83,14 @@ class QuantizedArtifact:
 
     def hook(self):
         """Serving hook: the default weight-provider (packed matmuls via
-        ``qmm``). Artifacts calibrated with activation scales need the LSQ
-        ``ServeHook``, which comes with the calibration slice."""
+        ``qmm``), plus LSQ activation fake-quant (``ServeHook``) when the
+        artifact was calibrated with activation scales."""
         from ..models.common import NO_QUANT
 
         if self.act_scales and self.a_bits:
-            raise NotImplementedError(
-                "serving an artifact with LSQ activation scales needs "
-                "ServeHook, which comes with the calibration slice")
+            from ..core.hooks import ServeHook
+
+            return ServeHook(self.act_scales, self.a_bits)
         return NO_QUANT
 
     def save(self, directory: str, step: int = 0) -> None:
@@ -185,6 +188,110 @@ def _verify_checksums(tree, manifest: dict, directory: str) -> None:
         raise ArtifactCorruptionError(
             f"artifact {directory}: manifest content_digest does not match "
             f"its own checksum table — the manifest was edited")
+
+
+# ---------------------------------------------------------------------------
+# export: PTQResult -> artifact
+# ---------------------------------------------------------------------------
+
+
+def export(model, result, *, a_bits: Optional[int] = None,
+           kv_dtype: str = "int8", kv_page_size: int = 16) -> QuantizedArtifact:
+    """Pack a calibrated :class:`repro_torch.core.PTQResult` into a
+    :class:`QuantizedArtifact` (on the result's device).
+
+    Args:
+      model: the model the result was calibrated for (its config feeds the
+        manifest).
+      result: ``PTQResult`` from :func:`repro_torch.core.quantize`: the
+        hardened weights in ``params_q``, per-path (QState, QConfig) in
+        ``qstates`` (incl. mixed-precision widths and the 8-bit embed/head).
+      a_bits: activation bit-width matching ``result.act_scales``; taken
+        from ``result.stats`` when calibration recorded it.
+      kv_dtype / kv_page_size: serving-side KV cache policy recorded in
+        the manifest.
+
+    Returns:
+      Artifact whose dequantized weights equal ``result.params_q``
+      bit for bit.
+    """
+    t0 = time.time()
+    if a_bits is None:
+        a_bits = result.stats.get("a_bits") if isinstance(result.stats, dict) else None
+    params_q = result.params_q
+    art = tree_map(lambda x: x, params_q)  # fresh containers, shared leaves
+    bits_by_path: dict[str, int] = {}
+    group = None
+
+    # group stacked per-layer paths ("body.3/sub0/attn/wq") by their leaf
+    stacked: dict[tuple, dict[int, str]] = {}
+    flat: list[str] = []
+    for path, (st, qc) in result.qstates.items():
+        bits_by_path[path] = qc.bits
+        if qc.group_size is not None:
+            group = qc.group_size
+        parts = path.split("/")
+        if "." in parts[0]:
+            sname, ri = parts[0].rsplit(".", 1)
+            stacked.setdefault((sname, *parts[1:]), {})[int(ri)] = path
+        else:
+            flat.append(path)
+
+    for key, by_layer in stacked.items():
+        node = art[key[0]]
+        for k in key[1:]:
+            node = node[k]
+        w = node["w"]  # (n_layers, ..., K, N) baked fake-quant values
+        n = w.shape[0]
+        missing = set(range(n)) - set(by_layer)
+        if missing:
+            raise ValueError(f"unquantized layers {sorted(missing)} in "
+                             f"stacked leaf {'/'.join(key)}")
+        cbits = max(result.qstates[by_layer[i]][1].bits for i in range(n))
+        codes, scales = [], []
+        for i in range(n):
+            st, qc = result.qstates[by_layer[i]]
+            codes.append(quantize_int(w[i], st, qc))  # exact on-grid recovery
+            scales.append(_scale_rows(st.scale, w[i].ndim))
+        node["w"] = pack_codes(torch.stack(codes), w.shape[-2], cbits)
+        node["qscale"] = torch.stack(scales)
+
+    for path in flat:
+        st, qc = result.qstates[path]
+        if path == "embed/table":
+            table = params_q["embed"]["table"]
+            art["embed"]["table"] = quantize_int(table, st, qc)
+            art["embed"]["table_qscale"] = st.scale.reshape(1, table.shape[-1])
+        elif path == "head/w":
+            w = params_q["head"]["w"]
+            art["head"]["w"] = pack_codes(quantize_int(w, st, qc),
+                                          w.shape[-2], qc.bits)
+            art["head"]["qscale"] = _scale_rows(st.scale, w.ndim)
+        else:
+            raise ValueError(f"unstacked quantized path {path!r}")
+
+    cfg = model.cfg
+    manifest = {
+        "version": ARTIFACT_VERSION,
+        "schema_version": ARTIFACT_SCHEMA_VERSION,
+        "arch": cfg.name, "family": cfg.family,
+        "n_layers": cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab,
+        "tie_embeddings": cfg.tie_embeddings,
+        "w_group": group, "a_bits": a_bits,
+        "kv_dtype": kv_dtype, "kv_page_size": kv_page_size,
+        "bits_by_path": bits_by_path,
+    }
+    artifact = QuantizedArtifact(art, dict(result.act_scales), manifest)
+    artifact.stats = _deploy_stats(artifact, tree_bytes(params_q),
+                                   time.time() - t0, bits_by_path)
+    return artifact
+
+
+def _scale_rows(scale: torch.Tensor, w_ndim: int) -> torch.Tensor:
+    """QState scale (keepdims layout) -> the node's (..., G, N) qscale."""
+    if scale.ndim == w_ndim + 1:  # grouped: (..., G, 1, N)
+        return scale.squeeze(-2)
+    return scale  # per-channel/tensor keepdims already (..., 1, N)-like
 
 
 def rtn_artifact(params: Params, bits: int, group: Optional[int] = None,

@@ -145,3 +145,19 @@ def describe_kv_decode(q_shape, k8_shape, v8_shape=None, kscale_shape=None,
         _check(got is None or tuple(got) == want, name,
                f"{what} {tuple(got or ())} should be {want}")
     return {"B": B, "H": H, "K": K, "G": G, "S": S, "hd": hd}
+
+
+def describe_fakequant(w_shape, scale_shape) -> dict:
+    """Validate a ``fakequant`` (AdaRound forward) launch: w (K, N) with a
+    scale of (1, N) (one per output channel) or (K, N). Any K and N (the
+    kernel masks the ragged tail)."""
+    name = "fakequant"
+    if len(w_shape) != 2 or len(scale_shape) != 2:
+        raise KernelSpecError(f"{name}: weight {tuple(w_shape)} and scale "
+                              f"{tuple(scale_shape)} must both be 2-D")
+    K, N = w_shape
+    _check(K >= 1 and N >= 1, name, f"empty weight {tuple(w_shape)}")
+    _check(tuple(scale_shape) in ((1, N), (K, N)), name,
+           f"scale {tuple(scale_shape)} must be (1, {N}) or ({K}, {N}) for "
+           f"weight {tuple(w_shape)}")
+    return {"K": K, "N": N, "per_row": scale_shape[0] == K and K > 1}

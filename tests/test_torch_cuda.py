@@ -1,6 +1,6 @@
-"""The CUDA kernels (qgemv, qmatmul, qmatmul_grouped, kv_decode) against
-their plain PyTorch versions, on the card, and the serve engine's and the
-MoE layer's kernel paths.
+"""The CUDA kernels (qgemv, qmatmul, qmatmul_grouped, kv_decode, fakequant)
+against their plain PyTorch versions, on the card, and the serve engine's,
+the MoE layer's and the calibration's kernel paths.
 
 The kernels have no CPU mode, so every test here is marked
 ``requires_cuda`` and skips without a GPU. This file imports neither JAX
@@ -8,7 +8,8 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerance: 1e-4 * max|ref| + 1e-5 (f32 sums taken in another order).
+Tolerance: 1e-4 * max|ref| + 1e-5 (f32 sums taken in another order);
+fakequant: hard bit for bit, soft within 1e-6 * max|ref|.
 """
 import numpy as np
 import pytest
@@ -339,3 +340,109 @@ def test_moe_engine_kernel_path_on_card(cuda):
     eng.assert_no_leaks()
     assert kv_kernel.LAUNCHES["kv_decode"] > 0
     assert kernel.LAUNCHES["qmatmul_grouped"] > 0
+
+
+# --- fakequant (K5) ------------------------------------------------------------
+
+FQ_CASES = [(768, 768), (768, 2048), (2048, 768), (100, 300), (100, 301), (1, 7),
+            (33, 4)]
+
+
+def fq_case(k, n, per_weight, device, bits=2, seed=0):
+    from repro_torch.core.quantizer import QConfig, QState
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((k, n), generator=gen, device=device) * 0.02
+    v = torch.randn((k, n), generator=gen, device=device) * 2
+    cfg = QConfig(bits=bits, channel_axis=-1)
+    s = torch.clamp_min(w.abs().amax(0, keepdim=True) / cfg.qmax, 1e-8)
+    if per_weight:
+        s = (s * (torch.rand((k, n), generator=gen, device=device) + 0.5)).contiguous()
+    return w, v, s, cfg, QState(s, torch.zeros_like(s))
+
+
+@pytest.mark.parametrize("k,n", FQ_CASES)
+@pytest.mark.parametrize("per_weight", [False, True])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_fakequant_kernel_matches_plain(cuda, k, n, per_weight, bits):
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+    from repro_torch.kernels.fakequant.ref import fakequant_ref
+
+    w, v, s, cfg, _ = fq_case(k, n, per_weight, cuda, bits)
+    for hard in (True, False):
+        before = fq_kernel.LAUNCHES["fakequant"]
+        got = fq_kernel.fakequant(w, v, s, qmin=cfg.qmin, qmax=cfg.qmax, hard=hard)
+        assert fq_kernel.LAUNCHES["fakequant"] == before + 1
+        want = fakequant_ref(w, v, s, cfg.qmin, cfg.qmax, hard)
+        torch.cuda.synchronize()
+        if hard:
+            assert torch.equal(got, want)
+        else:
+            assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+def test_fakequant_rejects_uncovered_configs(cuda):
+    import dataclasses
+
+    from repro_torch.kernels.fakequant import ops as fq_ops
+    from repro_torch.kernels.spec import KernelSpecError
+
+    w, v, s, cfg, st = fq_case(64, 48, False, cuda)
+    with pytest.raises(KernelSpecError, match="2-D"):
+        fq_ops.adaround_forward(w[None], v[None], st, cfg, hard=True)
+    for bad in (dataclasses.replace(cfg, group_size=16),
+                dataclasses.replace(cfg, symmetric=False)):
+        with pytest.raises(KernelSpecError, match="symmetric per-channel"):
+            fq_ops.adaround_forward(w, v, st, bad, hard=True)
+    with pytest.raises(TypeError, match="float32"):
+        fq_ops.adaround_forward(w.double(), v, st, cfg, hard=True)
+    strided = torch.cat([w, w], 1)[:, ::2]  # (64, 48), not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        fq_ops.adaround_forward(strided, v, st, cfg, hard=True)
+
+
+def test_hard_quant_auto_launches_kernel(cuda):
+    from repro_torch.core import adaround
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+    from repro_torch.kernels.fakequant import ops as fq_ops
+
+    w, v, s, cfg, st = fq_case(768, 2048, False, cuda)
+    before = fq_kernel.LAUNCHES["fakequant"]
+    got = fq_ops.adaround_forward(w, v, st, cfg, hard=True)
+    hq = adaround.hard_quant(w, v, st, cfg)
+    assert fq_kernel.LAUNCHES["fakequant"] == before + 2
+    hard = (v >= 0).to(w.dtype)
+    want = torch.clamp(torch.floor(w / st.scale) + hard + st.zero_point, cfg.qmin,
+                       cfg.qmax)
+    want = (want - st.zero_point) * st.scale
+    assert torch.equal(got, want) and torch.equal(hq, want)
+    # grouped configs take the plain formula, by config
+    import dataclasses
+
+    g = dataclasses.replace(cfg, group_size=128)
+    from repro_torch.core.quantizer import init_qstate
+
+    gst = init_qstate(w, g)
+    adaround.hard_quant(w, v, gst, g)
+    assert fq_kernel.LAUNCHES["fakequant"] == before + 2
+
+
+def test_two_block_full_width_calibration_on_card(cuda):
+    import dataclasses
+
+    from repro_torch.core import ReconConfig, quantize
+    from repro_torch.data import Corpus, CorpusConfig, make_batches
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config("brecq_lm_100m"), n_layers=2)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    calib = make_batches(Corpus(CorpusConfig(vocab=cfg.vocab)), 2, 8, 64, seed=1)
+    fq_kernel.reset_launches()
+    res = quantize(model, params, calib, ReconConfig(w_bits=2, iters=5, calib_bs=8))
+    retries = res.stats["unit_retries"]
+    assert fq_kernel.LAUNCHES["fakequant"] == 2 * 2 * 7 + 2 * 7 + 14 * retries
+    assert res.params_q["body"]["sub0"]["attn"]["wq"]["w"].is_cuda
+    assert all(bool(torch.isfinite(v).all()) for v in res.v.values())
+    assert res.stats["calib_iters_per_s"] > 0

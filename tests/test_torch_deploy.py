@@ -168,8 +168,11 @@ def test_hook_needs_serve_hook_for_act_scales():
     assert t.hook() is NO_QUANT
     t.act_scales = {"body/sub0/attn/wq": torch.ones(())}
     t.manifest["a_bits"] = 8
-    with pytest.raises(NotImplementedError, match="calibration"):
-        t.hook()
+    hook = t.hook()  # the LSQ ServeHook, as the JAX package serves it
+    from repro_torch.core.hooks import ServeHook
+
+    assert isinstance(hook, ServeHook) and hook.a_bits == 8
+    assert hook.act_scales is t.act_scales
 
 
 def test_interop_roundtrip_keeps_dtypes():
