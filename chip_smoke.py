@@ -9,10 +9,12 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
   2. parity  hold the ``qgemv`` and ``qmatmul`` kernels against their plain
              PyTorch versions on the card over the serving shapes of
              brecq-lm-100m (decode M 1 and 8; prefill M 32, the engine's
-             chunk, and 512; ragged M and N), for 2/4/8-bit codes,
+             chunk, 64 and 512; ragged M and N), for 2/4/8-bit codes,
              per-channel and group-128 scales; time kernel, plain version,
              library yardstick (torch.matmul on the pre-dequantized
-             weight) and the bound at the slice shapes
+             weight) and the bound at the slice shapes (for qmatmul's
+             tensor-core body: bytes, or two TF32 / three bf16 passes; the
+             f32 CUDA-core bound beside it)
   3. kv      hold ``kv_decode`` against its plain version (the engine's
              shape, GQA, MQA, ragged S, a window, kpos holes, a row with no
              valid slot); time kernel, plain version, library yardstick
@@ -57,8 +59,11 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              sequences; export, save, load (weights equal to params_q bit
              for bit) and serve the artifact through the fixed batch
              (W2 packed, plain path replays the tokens)
-  8. report  one JSON line of kernels, the card's name and power limit, and
-             the final ``{"ok": true, "device": ...}`` line
+  8. report  one JSON line of kernels (qmatmul at M 32 and, as added
+             fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
+             64; the launches of each body on the main paths), the card's
+             name and power limit, and the final ``{"ok": true, "device":
+             ...}`` line
 
 Exits non-zero on any failure, and when no CUDA device is available.
 
@@ -82,10 +87,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and f32
-# outside the tensor cores (the kernels do f32 FMA on CUDA cores).
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32
+# outside the tensor cores (qgemv, qmatmul_grouped's decode body, kv_decode
+# and fakequant do f32 on CUDA cores), and dense TF32 and bf16 on the tensor
+# cores (qmatmul's and qmatmul_grouped's tensor-core body: the short tile
+# in two TF32 passes, the wide tile in three bf16 passes).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
+PEAK_TF32_FLOP_S = 495e12
+PEAK_BF16_FLOP_S = 989e12
+# operations per multiply-add and peak rate of each body's arithmetic
+ARITH = {"f32": (2, PEAK_F32_FLOP_S), "tf32x2": (4, PEAK_TF32_FLOP_S),
+         "bf16x3": (6, PEAK_BF16_FLOP_S)}
 
 # (K, N) of one brecq-lm-100m layer's packed matmuls, with how many of the
 # layer's 7 matmuls have that shape: wq/wk/wv/wo, w_gate/w_up, w_down.
@@ -93,7 +106,8 @@ SLICE_SHAPES = {(768, 768): 4, (768, 2048): 2, (2048, 768): 1}
 RAGGED_N = 200
 L2_FLUSH_BYTES = 100e6  # weight copies per timing: twice the 50 MB L2
 DECODE_M = (1, 8)
-PREFILL_M = (32, 512, 520)  # the engine's prefill chunk, fixed batch, ragged M
+# the engine's prefill chunk, the wide tile's first M, fixed batch, ragged M
+PREFILL_M = (32, 64, 512, 520)
 TIMED_M = (8, 32, 512)  # decode, the engine's prefill chunk, fixed-batch prefill
 
 # kv_decode parity cases (B, H, K, hd, S, window, kpos holes, empty row):
@@ -159,14 +173,20 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def bound(m: int, k: int, n: int, bits: int, g: int) -> tuple[float, str]:
+def bound(m: int, k: int, n: int, bits: int, g: int,
+          arith: str = "f32") -> tuple[float, str, float]:
     """Least time (ms) for x (m,k) f32 @ packed (k*bits/8, n) + scales (g,n)
     -> (m,n) f32: each input read once, the output written once, against
-    2mkn f32 operations."""
+    the operations of the arithmetic the body uses (``ARITH``: two TF32
+    passes, 4mkn, or three bf16 passes, 6mkn, on the tensor cores; 2mkn f32
+    on CUDA cores). Returns (ms, "bytes" or "operations", the f32 CUDA-core
+    bound in ms, which earlier rows used)."""
     nbytes = m * k * 4 + k * n * bits // 8 + g * n * 4 + m * n * 4
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = 2 * m * k * n / PEAK_F32_FLOP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_f32 = max(t_bytes, 2 * m * k * n / PEAK_F32_FLOP_S * 1e3)
+    per, peak = ARITH[arith]
+    t_ops = per * m * k * n / peak * 1e3
+    return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
 
 
 def graph_time_ms(torch, fn, arg_sets, replays: int = 3) -> float:
@@ -256,6 +276,8 @@ def phase_parity(torch, kernel, ref, pack) -> tuple[dict, list]:
 
 def _time_case(torch, name, fn, plain, ref, x, wp, s, bits, group, m, k, n,
                err, rel) -> dict:
+    from repro_torch.kernels.spec import plan_qmatmul
+
     copies = max(2, math.ceil(L2_FLUSH_BYTES / (wp.numel() + s.numel() * 4)))
     arg_sets = [(x, wp.clone(), s.clone()) for _ in range(copies)]
     t_kernel = graph_time_ms(torch, lambda a, b, c: fn(a, b, c, bits=bits), arg_sets)
@@ -265,15 +287,22 @@ def _time_case(torch, name, fn, plain, ref, x, wp, s, bits, group, m, k, n,
     lib_sets = [(x, w_deq.clone()) for _ in range(lib_copies)]
     t_lib = graph_time_ms(torch, torch.matmul, lib_sets)
     del arg_sets, lib_sets
-    b_ms, b_by = bound(m, k, n, bits, s.shape[0])
+    plan = (plan_qmatmul(m, k, n, s.shape[0], bits) if name == "qmatmul"
+            else None)
+    body = plan.body if plan else "qgemv"
+    b_ms, b_by, b_f32 = bound(m, k, n, bits, s.shape[0], plan.arith if plan else "f32")
     row = {"kernel": name, "bits": bits, "group": group, "M": m, "K": k, "N": n,
+           "body": body, "tile": plan.tile if plan else None,
+           "arith": plan.arith if plan else "f32",
+           "split": plan.split if plan else None,
            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
-           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-           "max_rel_err": rel}
+           "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": b_f32,
+           "max_abs_err": err, "max_rel_err": rel}
     print(f"[time] {name:7s} W{bits} g={str(group):4s} M={m:3d} K={k:4d} N={n:4d}: "
           f"kernel {t_kernel*1e3:9.2f} us  plain {t_plain*1e3:9.2f} us  "
-          f"library {t_lib*1e3:9.2f} us  bound {b_ms*1e3:7.2f} us ({b_by})  "
-          f"err {err:.2e} (rel {rel:.2e})")
+          f"library {t_lib*1e3:9.2f} us  bound {b_ms*1e3:7.2f} us ({b_by}; f32 "
+          f"{b_f32*1e3:.2f})  {body}{'/' + plan.tile + ' split ' + str(plan.split) if plan else ''}"
+          f"  err {err:.2e} (rel {rel:.2e})")
     return row
 
 
@@ -412,12 +441,16 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
         again = serve.main([*common, "--artifact", str(art_dir),
                             "--no-compare-fp"])
         run = dict(kernel.LAUNCHES)
+        bodies = dict(kernel.BODY_LAUNCHES["qmatmul"])
         for k in launches:
             launches[k] += run[k]
         tiers = first["stats"]["qmm_tiers"]
-        print(f"[serve W{bits}] kernel launches {run}; qmm tiers {tiers}")
+        print(f"[serve W{bits}] kernel launches {run}; qmatmul bodies {bodies}; qmm "
+              f"tiers {tiers}")
         if run["qgemv"] == 0 or run["qmatmul"] == 0:
             fail(f"W{bits} serve did not launch both kernels: {run}")
+        if bodies["tc"] != run["qmatmul"]:
+            fail(f"W{bits} prefill did not all take the tensor cores: {bodies}")
         if tiers["decode"] == 0 or tiers["prefill"] == 0:
             fail(f"W{bits} serve did not dispatch both tiers: {tiers}")
         if not torch.equal(first["tokens"], again["tokens"]):
@@ -439,7 +472,8 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
               f"{st['tok_s']:.1f} tok/s (fp: prefill "
               f"{first['fp_stats']['prefill_tok_s']:.1f}, decode "
               f"{first['fp_stats']['tok_s']:.1f})")
-        results.append({"bits": bits, "launches": run, "qmm_tiers": tiers,
+        results.append({"bits": bits, "launches": run, "bodies": bodies,
+                        "qmm_tiers": tiers,
                         "logits_max_abs_err": err, "token_agreement": agree,
                         "artifact_bytes": first["artifact_bytes"],
                         "fp_bytes": first["fp_bytes"], "stats": st,
@@ -486,14 +520,16 @@ def _kernel_vs_plain(torch, model, params, batch, gen, what):
 
 def _counted(kernels, fn):
     """Run ``fn`` with every kernel's launch count set to 0 just before;
-    returns (fn's result, the counts just after)."""
+    returns (fn's result, the counts just after, the packed matmuls'
+    launches by body just after)."""
     for k in kernels.values():
         k.reset_launches()
     out = fn()
-    counts = {}
+    counts, bodies = {}, {}
     for k in kernels.values():
         counts.update(k.LAUNCHES)
-    return out, counts
+        bodies.update(copy.deepcopy(getattr(k, "BODY_LAUNCHES", {})))
+    return out, counts, bodies
 
 
 def engine_params(torch, model, seed: int = 0):
@@ -633,11 +669,14 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
     params = engine_params(torch, model)
     art_dir = workdir / "engine_w4"
     main_args = [*ENGINE_ARGS, "--save-artifact", str(art_dir)]
-    out, launches = _counted(kernels, lambda: serve.main(main_args, params=params))
+    out, launches, bodies = _counted(kernels, lambda: serve.main(main_args, params=params))
     m = out["metrics"]
-    print(f"[engine] main path: kernel launches {launches}")
+    print(f"[engine] main path: kernel launches {launches}; qmatmul bodies "
+          f"{bodies['qmatmul']}")
     if min(launches[k] for k in ("qgemv", "qmatmul", "kv_decode")) == 0:
         fail(f"the engine's main path did not launch every kernel: {launches}")
+    if bodies["qmatmul"]["tc"] != launches["qmatmul"]:
+        fail(f"the engine's prefill chunks did not all take the tensor cores: {bodies}")
     if set(out["states"].values()) != {"done"}:
         fail(f"engine requests did not all finish: {out['states']}")
     distinct = sorted(len(set(t)) for t in out["tokens"].values())
@@ -726,7 +765,7 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
           f"{m['mean_resident_kv_bytes_per_stream']:.0f} B/stream, "
           f"{m['bytes_per_page']} B/page, kv_decode launches "
           f"{launches['kv_decode']}")
-    return launches, {"metrics": m, "launches": launches,
+    return (launches, bodies), {"metrics": m, "launches": launches, "bodies": bodies,
                       "distinct_tokens_per_stream": distinct,
                       "kv_decode_on_engine_inputs": shadow,
                       "kernel_vs_plain_int8": vs_plain,
@@ -787,6 +826,8 @@ def phase_moe_kernel(torch, kernel, ref, pack) -> tuple[float, list]:
 
 
 def _time_grouped(torch, kernel, ref, pack, x, wp, s, m, k, n, err, amax) -> dict:
+    from repro_torch.kernels.spec import plan_qmatmul
+
     copies = max(2, math.ceil(L2_FLUSH_BYTES / (wp.numel() + s.numel() * 4)))
     arg_sets = [(x, wp.clone(), s.clone()) for _ in range(copies)]
     t_kernel = graph_time_ms(
@@ -799,15 +840,20 @@ def _time_grouped(torch, kernel, ref, pack, x, wp, s, m, k, n, err, amax) -> dic
     lib_sets = [(x, w_deq.clone()) for _ in range(lib_copies)]
     t_lib = graph_time_ms(torch, torch.bmm, lib_sets)
     del lib_sets, w_deq
-    b_ms, b_by = bound(m, k, n, 4, s.shape[1])
-    b_ms *= MOE_E  # E independent products of the same shape
+    plan = plan_qmatmul(m, k, n, s.shape[1], 4, MOE_E, True)
+    b_ms, b_by, b_f32 = bound(m, k, n, 4, s.shape[1], plan.arith)
+    b_ms, b_f32 = b_ms * MOE_E, b_f32 * MOE_E  # E independent products of one shape
     row = {"kernel": "qmatmul_grouped", "bits": 4, "group": None, "E": MOE_E,
-           "M": m, "K": k, "N": n, "ms": t_kernel, "plain_ms": t_plain,
+           "M": m, "K": k, "N": n, "body": plan.body, "tile": plan.tile,
+           "arith": plan.arith,
+           "split": plan.split, "ms": t_kernel, "plain_ms": t_plain,
            "library_ms": t_lib, "bound_ms": b_ms, "bound_by": b_by,
-           "max_abs_err": err, "max_rel_err": err / max(amax, 1e-30)}
+           "bound_f32_ms": b_f32, "max_abs_err": err,
+           "max_rel_err": err / max(amax, 1e-30)}
     print(f"[time] qmatmul_grouped W4 E={MOE_E} M={m:2d} K={k:4d} N={n:4d}: kernel "
           f"{t_kernel*1e3:9.2f} us  plain {t_plain*1e3:9.2f} us  library "
-          f"{t_lib*1e3:9.2f} us  bound {b_ms*1e3:7.2f} us ({b_by})  err {err:.2e}")
+          f"{t_lib*1e3:9.2f} us  bound {b_ms*1e3:7.2f} us ({b_by}; f32 {b_f32*1e3:.2f})  "
+          f"{plan.body}/{plan.tile} split {plan.split}  err {err:.2e}")
     return row
 
 
@@ -865,11 +911,16 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
     # fixed batch: the main path, kernel launches counted
     prompts = Corpus(CorpusConfig(vocab=cfg.vocab)).sample(8, 64, seed=7)
     batch = {"tokens": torch.from_numpy(prompts).cuda()}
-    (gen, st), launches = _counted(kernels, lambda: serve.run_prefill_decode(
+    (gen, st), launches, bodies = _counted(kernels, lambda: serve.run_prefill_decode(
         model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
         hook=art.hook(), tag="moe W4"))
     forwards = 2 + 32  # warm-up prefill and decode step, prefill, 31 decode steps
-    print(f"[moe serve] kernel launches {launches}; qmm tiers {st['qmm_tiers']}")
+    print(f"[moe serve] kernel launches {launches}; qmm tiers {st['qmm_tiers']}; "
+          f"qmatmul_grouped bodies {bodies['qmatmul_grouped']}")
+    gb = bodies["qmatmul_grouped"]
+    if gb["tc"] != 3 * n_moe * 2 or gb["gemv"] != 3 * n_moe * (forwards - 2):
+        fail(f"the MoE prefills (64 rows an expert) did not take the tensor cores "
+             f"and the decode steps the decode body: {gb}")
     if launches["qmatmul_grouped"] != 3 * n_moe * forwards:
         fail(f"qmatmul_grouped launched {launches['qmatmul_grouped']} times, not "
              f"3 x {n_moe} MoE layers x {forwards} forwards")
@@ -887,7 +938,8 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
           f"sequence {distinct}; prefill {st['prefill_tok_s']:.1f} tok/s, decode "
           f"{st['tok_s']:.1f} tok/s; capacity dropped {drops[0]} of {drops[1]} "
           f"(token, expert) picks at prefill ({drops[0] // 2} per pass)")
-    fixed = {"launches": launches, "stats": st, "logits_max_abs_err": err,
+    fixed = {"launches": launches, "bodies": bodies, "stats": st,
+             "logits_max_abs_err": err,
              "token_agreement": agree, "distinct_tokens_per_sequence": distinct,
              "dropped_picks_per_prefill": drops[0] // 2,
              "picks_per_prefill": drops[1] // 2, "artifact_bytes": art_bytes,
@@ -899,11 +951,12 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
                              "--seed", "0", "--kv-dtype", "int8", "--streams",
                              str(MOE_ENGINE_STREAMS)])
     streams = serve.engine_streams(args, cfg.vocab)
-    eng, elaunch = _counted(kernels, lambda: _engine(serve, model, art, args,
-                                                     streams, "cuda"))
+    eng, elaunch, ebodies = _counted(kernels, lambda: _engine(serve, model, art, args,
+                                                              streams, "cuda"))
     m = eng.metrics()
     edistinct = sorted(len(set(t)) for t in _tokens(eng).values())
-    print(f"[moe engine] kernel launches {elaunch}; {m['tokens_generated']} tokens "
+    print(f"[moe engine] kernel launches {elaunch}, grouped bodies "
+          f"{ebodies['qmatmul_grouped']}; {m['tokens_generated']} tokens "
           f"in {m['wall_s']:.2f}s ({m['sustained_tok_s']:.1f} tok/s sustained), "
           f"occupancy {m['mean_slot_occupancy']:.3f}, resident KV "
           f"{m['mean_resident_kv_bytes_per_stream']:.0f} B/stream; distinct "
@@ -921,6 +974,7 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
           f"bit-identical ({stag.metrics()['ticks']} vs {seq.metrics()['ticks']} "
           f"ticks)")
     return {"fixed": fixed, "engine": {"metrics": m, "launches": elaunch,
+                                       "bodies": ebodies,
                                        "distinct_tokens_per_stream": edistinct}}
 
 
@@ -1135,31 +1189,52 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> di
                       "token_agreement": agree, "stats": sst}}
 
 
-def kernel_line(errs, rows, kv_err, kv_timed, launches, moe, fq) -> dict:
+TIMED_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms")
+
+
+def _layer(rows, shapes, **sel) -> dict:
+    """The rows matching ``sel``, summed over one layer's calls (``shapes``:
+    (K, N) -> calls of that shape)."""
+    rows = [r for r in rows if all(r.get(k) == v for k, v in sel.items())]
+    tot = {key: sum(shapes[(r["K"], r["N"])] * r[key] for r in rows) for key in TIMED_KEYS}
+    by = {r["bound_by"] for r in rows}
+    tot["bound_by"] = by.pop() if len(by) == 1 else "bytes"
+    tot["bodies"] = sorted({f"{r['body']}/{r['tile']}" if r.get("tile") else r["body"]
+                            for r in rows})
+    return tot
+
+
+def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
-    for qgemv, the prefill chunk's M=32 for qmatmul), summed over the
-    layer's shapes. For kv_decode: one call at the engine's decode shape."""
+    for qgemv, the prefill chunk's M=32 for qmatmul, and the fixed batch's
+    M=512 as added fields), summed over the layer's shapes; qmatmul_grouped
+    likewise per MoE layer at M 8 and, as added fields, M 64. For
+    kv_decode: one call at the engine's decode shape. ``body_launches``:
+    the main path's launches of each body."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
             "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
     for name, (replaces, m) in meta.items():
-        sel = [r for r in rows if r["kernel"] == name and r["bits"] == 4
-               and r["group"] is None and r["M"] == m]
-        tot = {key: sum(SLICE_SHAPES[(r["K"], r["N"])] * r[key] for r in sel)
-               for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        by = {r["bound_by"] for r in sel}
-        out.append({
+        tot = _layer(rows, SLICE_SHAPES, kernel=name, bits=4, group=None, M=m)
+        entry = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": tot["ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-            "bound_by": by.pop() if len(by) == 1 else "bytes",
-            "library_ms": tot["library_ms"],
+            "bound_by": tot["bound_by"], "library_ms": tot["library_ms"],
+            "bound_f32_ms": tot["bound_f32_ms"],
             "shapes": f"one layer: 4x768x768, 2x768x2048, 1x2048x768; W4 "
-                      f"per-channel; M={m}"})
+                      f"per-channel; M={m}"}
+        if name == "qmatmul":
+            big = _layer(rows, SLICE_SHAPES, kernel=name, bits=4, group=None, M=512)
+            entry.update({f"m512_{k}": big[k] for k in (*TIMED_KEYS, "bound_by")})
+            entry["body"] = tot["bodies"]
+            entry["m512_body"] = big["bodies"]
+            entry["body_launches"] = bodies["qmatmul"]
+        out.append(entry)
     t = kv_timed["engine"]
     out.append({
         "name": "kv_decode", "route": "cuda",
@@ -1169,20 +1244,25 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, moe, fq) -> dict:
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "shapes": f"B={t['B']} H={t['H']} K={t['K']} hd={t['hd']} S={t['S']}"})
-    sel = [r for r in moe["rows"] if r["M"] == 8]
-    tot = {key: sum(MOE_SHAPES[(r["K"], r["N"])] * r[key] for r in sel)
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    out.append({
+    dec = _layer(moe["rows"], MOE_SHAPES, M=8)
+    pre = _layer(moe["rows"], MOE_SHAPES, M=64)
+    entry = {
         "name": "qmatmul_grouped", "route": "cuda",
         "source": "src/repro_torch/kernels/qmatmul/csrc/qmatmul.cu",
         "replaces": "src/repro/kernels/qmatmul/kernel.py:194",
         "launches": moe["launches"]["qmatmul_grouped"],
-        "max_abs_err": moe["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"], "bound_by": sel[0]["bound_by"],
-        "library_ms": tot["library_ms"],
+        "max_abs_err": moe["err"], "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"], "bound_f32_ms": dec["bound_f32_ms"],
+        "body": dec["bodies"],
         "shapes": f"one deepseek-moe-16b MoE layer: 2x E{MOE_E} 2048x1408, 1x "
-                  f"E{MOE_E} 1408x2048; W4 per-channel; M=8 per expert",
-        "launches_from": "the MoE fixed-batch serve"})
+                  f"E{MOE_E} 1408x2048; W4 per-channel; M=8 per expert (m64_*: "
+                  f"M=64)",
+        "launches_from": "the MoE fixed-batch serve"}
+    entry.update({f"m64_{k}": pre[k] for k in (*TIMED_KEYS, "bound_by")})
+    entry["m64_body"] = pre["bodies"]
+    entry["body_launches"] = moe["bodies"]["qmatmul_grouped"]
+    out.append(entry)
     tot = {key: sum(SLICE_SHAPES[(r["K"], r["N"])] * r[key] for r in fq["rows"])
            for key in ("ms", "plain_ms", "bound_ms")}
     out.append({
@@ -1231,14 +1311,15 @@ def main(argv=None) -> None:
     moe_err, moe_rows = phase_moe_kernel(torch, kernel, ref, pack)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, served = phase_serve(torch, kernel, ops, serve, Path(tmp))
-        launches, engine = phase_engine(torch, serve, kernels, Path(tmp))
+        (launches, bodies), engine = phase_engine(torch, serve, kernels, Path(tmp))
         moe = phase_moe_serve(torch, serve, kernels, Path(tmp))
         fq_err, fq_rows = phase_fq_kernel(torch, fq_kernel, fq_ref)
         calib = phase_calib(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
 
-    line = kernel_line(errs, rows, kv_err, kv_timed, launches,
+    line = kernel_line(errs, rows, kv_err, kv_timed, launches, bodies,
                        {"err": moe_err, "rows": moe_rows,
-                        "launches": moe["fixed"]["launches"]},
+                        "launches": moe["fixed"]["launches"],
+                        "bodies": moe["fixed"]["bodies"]},
                        {"err": fq_err, "rows": fq_rows, "launches": calib["launches"]})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

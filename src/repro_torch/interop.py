@@ -14,6 +14,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .device import resolve
+
 
 def tree_map(fn: Callable, tree: Any) -> Any:
     """Apply ``fn`` to every non-dict leaf of a nested dict."""
@@ -45,11 +47,14 @@ def flatten_paths(tree: Any, sep: str = "/") -> dict:
     return out
 
 
-def params_from_numpy(tree: Any, device="cpu") -> Any:
+def params_from_numpy(tree: Any, device=None) -> Any:
     """Array-like leaves (numpy, or anything ``np.asarray`` takes) ->
-    torch tensors on ``device`` with the same dtype."""
+    torch tensors on ``device`` with the same dtype. ``None`` means the
+    card (``device.resolve``: raises where there is none); pass
+    ``device="cpu"`` for host tensors."""
+    dev = resolve(device)
     return tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
+        lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
 
 
 def params_to_numpy(tree: Any) -> Any:

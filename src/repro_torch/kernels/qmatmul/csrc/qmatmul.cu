@@ -17,8 +17,10 @@
 //   out    (M, N)            f32
 //
 // Every kernel masks ragged M and N itself, so no padding is needed on
-// the caller's side. The math is f32 FMA on CUDA cores; tensor cores
-// (wgmma, bf16/tf32) and TMA staging are later work.
+// the caller's side. qgemv and qmatmul_grouped at M <= 8 are f32 FMA on
+// CUDA cores; qmatmul (every M) and qmatmul_grouped at M > 8 run on the
+// tensor cores (below), with a CUDA-core body kept for scale groups too
+// short for them.
 //
 // qgemv does 2*M*K*N f32 operations on K*N*bits/8 weight bytes (M <= 8):
 // at M = 8 its f32 operations outweigh the bytes on paper, at M = 1 the
@@ -32,28 +34,95 @@
 // batch row, unpacks in registers and keeps M x 4 partial sums; each group's
 // scale multiplies its partial sum.
 //
-// qmatmul is bound by f32 operations at the prefill shapes (M = 512). A
-// block computes a 64 x 64 output tile over half of K in k-steps of 32 (a
-// 2-block cluster covers K, so the N = 768 shapes fill the card): the x tile
-// and the unpacked, scaled weight tile go through shared memory, the next
-// step's global loads are in flight during the current step's math, and a
-// thread keeps a 4 x 4 tile fed by float4 shared-memory reads.
+// qmatmul, and qmatmul_grouped at M > 8: the tensor-core body ("tc").
+//   Arithmetic. Tensor-core MMAs with f32 accumulators, on codes that are
+//   exact in the operand type (|c| <= 128 in TF32 and in bf16), so the
+//   weight operand needs no split; the scale is uniform within a group, so
+//   it multiplies the group's partial sum (the JAX kernel's scale-after-dot
+//   form), never the codes. Only x is rounded, and split so that the parts
+//   carry it to < 2^-21 relative: each product of exact operands is exact
+//   in f32, so a product carries < 2^-21 relative error before f32
+//   accumulation, well inside the 1e-4 * max|ref| + 1e-5 every
+//   kernel-vs-plain check uses.
+//     short tile: mma.sync.m16n8k8 TF32, two passes, x = hi + lo; hi = x
+//       rounded to 11 significant bits by Veltkamp's split (three IEEE f32
+//       operations, exact in TF32), lo = x - hi (exact) with its low 13
+//       bits cleared: |x - hi - lo| < 2^-10 |lo| < 2^-21 |x|. (cvt.rna.tf32
+//       would round lo to nearest, 2^-22, but the conversion instruction
+//       issues at a fraction of the FMA rate.)
+//     wide tile: wgmma.m64n128k16 bf16, three passes, x = h1 + h2 + h3,
+//       each the upper half (bf16 by truncation) of the remaining f32
+//       residual: |x - h1 - h2 - h3| < 2^-21 |x|. bf16 runs at twice the
+//       TF32 rate and halves the B tiles in shared memory, which this tile
+//       is bound by; three bf16 passes cost less than two TF32 passes.
+//   Per-channel scales (G = 1) multiply the finished sums in the epilogue;
+//   with G > 1 a thread folds acc_total += acc_group * s[g, col] in
+//   registers whenever its next k-unit (short: 8 k, 16 for W2; wide: 16 k)
+//   lies in another group, so a group must be a whole number of k-units.
+//   Bound. 4*M*K*N operations at 495 TFLOP/s (two TF32 passes) or 6*M*K*N
+//   at 989 TFLOP/s (three bf16 passes), against the bytes (x, codes,
+//   scales, out once) at 3.35 TB/s: operations at M 512 and at the MoE
+//   prefill (E 64, M 64); at the engine's 32-row chunk the two are about
+//   equal and well under a microsecond, so latency and parallelism are its
+//   real limit.
+//   Short tile (M <= 32, and groups of 8 k above): 32 x 32 outputs, 4
+//   warps each on every fourth k-unit of the whole tile (two m16 x four n8
+//   MMA tiles a warp), their sums met in shared memory. Codes go from packed bytes straight to B
+//   fragments as floats (2^23 + field - offset, exact), with no dequantized
+//   tile, under a k-permutation: within an MMA the sum over k does not
+//   depend on order, so A and B take the same permutation of each k-unit
+//   (the k one thread's B fragment spans: 8 for W4/W8, 16 for W2). Thread
+//   (group g, lane-in-group t) holds logical k = t and t + 4 of an
+//   m16n8k8; they map to physical k of the unit:
+//     W4  2t, 2t + 1            (the two nibbles of packed row t)
+//     W2  4t + 2j, 4t + 2j + 1  (fields 2j, 2j+1 of packed row t; MMA j = 0, 1)
+//     W8  2t, 2t + 1            (packed rows 2t and 2t + 1)
+//   so a thread's A values are neighbours in x: one float2 (float4 for W2)
+//   shared-memory load. Columns: byte i of the 32-bit word at columns 4g ..
+//   4g + 3 feeds n8 tile i, i.e. tile i's column g is column 4g + i; the
+//   accumulators of thread (g, t) are then the 8 consecutive columns 8t ..
+//   8t + 7 of rows g and g + 8.
+//   Wide tile (M > 32): one warpgroup's wgmma, 64 x 128 outputs, A (h1,
+//   h2, h3) from registers, B from shared memory: each stage's codes are
+//   unpacked once per block into bf16 B tiles (the canonical K-major layout
+//   without swizzle), which the wgmma reads by descriptor. Groups that are
+//   not a whole number of 16 k (W4/W8 group 8) take the short tile.
+//   Ring. x tiles (f32) and packed code tiles go through a cp.async ring in
+//   shared memory (4 stages short, 3 wide), in 16-byte copies when K % 4
+//   == 0 (x) and N % 16 == 0 on an aligned base (codes), 4-byte copies or
+//   plain loads otherwise; past M, N and K they zero-fill (a code byte 0
+//   decodes to -8 for W4, but meets x = 0). Row strides are padded so that
+//   a warp's shared-memory reads and the unpacking's writes hit every bank
+//   once.
+//   Schedule, chosen in Python from the shape alone (kernels/spec.py
+//   plan_qmatmul) and passed in: the tile by M, then K split across a
+//   cluster of 1, 2, 4 or 8 blocks until the grid holds 264 blocks (short)
+//   or 132 (wide; then further while a block keeps 8 stages within one wave
+//   of resident blocks, and beyond a wave the split of 1 or 2 that fills the
+//   last wave best): the engine's chunk (M 32) takes 8 and 192-512 blocks,
+//   M 512 takes 2-8 and 192-384, the MoE prefill (E 64 on the grid) 1-2 and
+//   1,024-1,408. Warps meet in shared memory and the cluster's blocks through
+//   distributed shared memory, every block summing its slice of the tile
+//   over ranks in a fixed order: no float atomics, so a shape always gives
+//   the same bits.
+//   CUDA-core body ("simt"): scale groups that are not a whole number of
+//   k-units (W4 group 4, W2 group 8) take the previous mainloop (mm_tile:
+//   64 x 64 tiles, scales applied per element as codes unpack, f32 FMA;
+//   qmatmul splits K over a 2-block cluster).
 //
 // qmatmul_grouped runs every routed-expert matmul of a MoE layer: x (E, M, K)
 // @ dequant(wp (E, K*bits/8, N), s (E, G, N)) -> (E, M, N), with M the tokens
 // each expert takes (8 at decode, 64 at deepseek-moe-16b's fixed-batch
 // prefill). Each expert's operands are found by size_t offsets from the
 // expert index on the grid, and the stacked codes are read directly, so no
-// (E, K, N) dequantized copy exists. At M = 8 it is bound by f32 operations
-// on paper (2*E*M*K*N against E*K*N*bits/8 bytes) and at M = 64 more so,
-// but each 92 MB weight (W4) streams from device memory once per call, so
-// the kernel needs ~25 KB in flight per SM to keep that stream going. The
-// TPU kernel's blocks are not carried over. M <= 8: one 256-thread block per
+// (E, K, N) dequantized copy exists. M <= 8 ("gemv"): each 92 MB weight
+// (W4) streams from device memory once per call, so the kernel needs ~25
+// KB in flight per SM to keep that stream going: one 256-thread block per
 // (64 columns, expert) over all of K (E x N/64 = 1,408 blocks fill the card
 // without a split of K); K goes in stages through a 4-deep cp.async ring in
 // shared memory, 3 stages ahead of the math, and each thread keeps 8 x 4
-// sums. Larger M takes qmatmul's 64 x 64 tile with the expert on grid.z and
-// all of K in one block. Both are deterministic.
+// sums. Larger M takes the tensor-core body above with the expert on
+// grid.z. All bodies are deterministic.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -74,7 +143,8 @@ constexpr int kGemvThreads = kGemvTX * kGemvTY;
 constexpr int kGemvCols = kGemvTX * 4;
 constexpr int kGemvSplit = 8;
 
-// qmatmul: 256 threads as 16 x 16, 64 x 64 outputs (4 x 4 each), k-step 32.
+// The CUDA-core body of qmatmul / qmatmul_grouped: 256 threads as 16 x 16,
+// 64 x 64 outputs (4 x 4 each), k-step 32.
 constexpr int kMmThreads = 256;
 constexpr int kMmBM = 64;
 constexpr int kMmBN = 64;
@@ -397,10 +467,10 @@ __device__ __forceinline__ void mm_store(float* __restrict__ out, const float (&
   }
 }
 
-// Prefill GEMM. Each block computes a 64 x 64 output tile over one half of K
-// (a 2-block cluster along grid.z covers all of K). Block 1 hands its tile to
-// block 0 through distributed shared memory, which adds it in a fixed order
-// and writes.
+// qmatmul's CUDA-core body (scale groups shorter than a k-unit). Each block
+// computes a 64 x 64 output tile over one half of K (a 2-block cluster along
+// grid.z covers all of K). Block 1 hands its tile to block 0 through
+// distributed shared memory, which adds it in a fixed order and writes.
 template <int BITS>
 __global__ void __cluster_dims__(1, 1, kMmSplit) __launch_bounds__(kMmThreads)
 qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
@@ -581,8 +651,8 @@ qgemv_grouped_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp
   }
 }
 
-// Grouped expert GEMM, any M: qmatmul's 64 x 64 tile with the expert on
-// grid.z, over all of K (no cluster: E x N/64 x M/64 blocks fill the card).
+// qmatmul_grouped's CUDA-core body (M > 8, scale groups shorter than a
+// k-unit): the 64 x 64 tile with the expert on grid.z, over all of K.
 template <int BITS>
 __global__ void __launch_bounds__(kMmThreads)
 qmatmul_grouped_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
@@ -602,6 +672,793 @@ qmatmul_grouped_kernel(const float* __restrict__ x, const uint8_t* __restrict__ 
   float acc[4][4];
   mm_tile<BITS>(x, wp, s, M, K, N, G, vec != 0, m0, n0, 0, K, xs, ws, acc);
   mm_store(out, acc, M, N, vec != 0, m0, n0);
+}
+
+// ---- tensor-core bodies: qmatmul, and qmatmul_grouped at M > 8 -------------
+
+constexpr int kTcBK = 32;  // k per ring stage (spec.QMM_TC_BK)
+
+// k that one thread's B fragment spans in the short tile: one packed byte
+// holds both of its k values of one m16n8k8 (W4, W8) or of two (W2)
+template <int BITS>
+__host__ __device__ constexpr int tc_unit() { return BITS == 2 ? 16 : 8; }
+
+// v = hi + lo exactly, hi with 11 significant bits (exact in TF32):
+// Veltkamp's split with C = 2^13 + 1, in IEEE operations that are never
+// contracted into FMAs (hi is v rounded to 11 bits). lo (at most 13
+// bits) goes to the MMA truncated to TF32: |error| < 2^-10 |lo| < 2^-21 |v|.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  const float c = __fmul_rn(v, 8193.f);
+  const float h = __fsub_rn(c, __fsub_rn(c, v));
+  hi = __float_as_uint(h);
+  lo = __float_as_uint(__fsub_rn(v, h)) & 0xFFFFE000u;
+}
+
+// field - offset as an exact float, for an offset-binary field < 2^8:
+// 2^23 + field is built in the mantissa, then bias = 2^23 + offset is
+// subtracted.
+__device__ __forceinline__ uint32_t code_tf32(uint32_t field, float bias) {
+  return __float_as_uint(__uint_as_float(0x4B000000u | field) - bias);
+}
+
+// One ring stage: BM rows of x (k0 .. k0 + kTcBK, row stride XS floats)
+// and the matching packed rows of BN code bytes (row stride WS bytes), by
+// cp.async with zero fill past M, N and K. wvec: the widest copy of a
+// packed row's pieces (16 bytes, 4, or 1 by plain loads).
+template <int BITS, int BM, int BN, int XS, int WS, int THREADS>
+__device__ __forceinline__ void tc_load_stage(float* xs, uint8_t* ws, const float* __restrict__ x,
+                                              const uint8_t* __restrict__ wp, int M, int K,
+                                              int N, int m0, int n0, int k0, int wvec) {
+  constexpr int kPer = 8 / BITS;
+  const int tid = threadIdx.x;
+  const int rows = K / kPer;
+  const bool xvec = (K & 3) == 0;  // x rows start 16-byte aligned (the wrapper aligns x)
+  for (int c = tid; c < BM * (kTcBK / 4); c += THREADS) {  // 4 floats of a row
+    const int r = c / (kTcBK / 4);
+    const int m = m0 + r;
+    const int k = k0 + 4 * (c % (kTcBK / 4));
+    float* dst = xs + r * XS + (k - k0);
+    if (xvec) {
+      const bool in = m < M && k < K;
+      __pipeline_memcpy_async(dst, in ? x + static_cast<size_t>(m) * K + k : x, 16, in ? 0 : 16);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = m < M && k + i < K;
+        __pipeline_memcpy_async(dst + i, in ? x + static_cast<size_t>(m) * K + k + i : x, 4,
+                                in ? 0 : 4);
+      }
+    }
+  }
+  const int r0 = k0 / kPer;
+  for (int c = tid; c < (kTcBK / kPer) * (BN / 16); c += THREADS) {  // 16 bytes of a row
+    const int r = c / (BN / 16);
+    const int pr = r0 + r;
+    const int n = n0 + 16 * (c % (BN / 16));
+    uint8_t* dst = ws + r * WS + (n - n0);
+    const uint8_t* src = wp + static_cast<size_t>(pr) * N + n;
+    if (wvec == 16) {  // N % 16 == 0: a piece lies wholly inside N or outside
+      const bool in = pr < rows && n < N;
+      __pipeline_memcpy_async(dst, in ? src : wp, 16, in ? 0 : 16);
+    } else if (wvec == 4) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool in = pr < rows && n + 4 * i < N;
+        __pipeline_memcpy_async(dst + 4 * i, in ? src + 4 * i : wp, 4, in ? 0 : 4);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dst[i] = (pr < rows && n + i < N) ? __ldg(src + i) : 0;
+    }
+  }
+}
+
+// The tile's epilogue. red[w][row][col] (row stride BN + 4) holds each
+// warp group's partial tile in every block of the cluster. The block first
+// sums its own WK groups into red[0]; then each block sums its slice of the
+// tile over the ranks in rank order (all remote loads issued together),
+// scales it (G == 1, scales in scs) and writes it, masking ragged M and N.
+template <int BM, int BN, int WK, int THREADS, bool GROUPED>
+__device__ __forceinline__ void tc_reduce_store(float* red, const float* scs,
+                                                float* __restrict__ out, int M, int N,
+                                                int m0, int n0, int split, int rank) {
+  constexpr int kRS = BN + 4;
+  constexpr int kQuads = BM * BN / 4;
+  const int tid = threadIdx.x;
+  if constexpr (WK > 1) {
+    __syncthreads();
+    for (int o = tid; o < kQuads; o += THREADS) {
+      float* r0 = red + (o / (BN / 4)) * kRS + 4 * (o % (BN / 4));
+      float4 v = *reinterpret_cast<const float4*>(r0);
+#pragma unroll
+      for (int w = 1; w < WK; ++w) {
+        const float4 p = *reinterpret_cast<const float4*>(r0 + w * BM * kRS);
+        v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+      }
+      *reinterpret_cast<float4*>(r0) = v;
+    }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  if (split > 1) {
+    cluster.sync();
+  } else {
+    __syncthreads();
+  }
+  const int per = kQuads / split;
+  const bool ovec = (N & 3) == 0;
+  for (int o = rank * per + tid; o < (rank + 1) * per; o += THREADS) {
+    const int r = o / (BN / 4);
+    const int c4 = 4 * (o % (BN / 4));
+    float4 v = *reinterpret_cast<const float4*>(red + r * kRS + c4);
+    if (split > 1) {
+      float4 p[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        if (b < split) {
+          p[b] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(red, b) + r * kRS + c4);
+        }
+      }
+      v = p[0];
+#pragma unroll
+      for (int b = 1; b < 8; ++b) {
+        if (b < split) {
+          v.x += p[b].x; v.y += p[b].y; v.z += p[b].z; v.w += p[b].w;
+        }
+      }
+    }
+    const int m = m0 + r;
+    const int n = n0 + c4;
+    if (m >= M || n >= N) continue;
+    if constexpr (!GROUPED) {  // the per-channel scale multiplies the finished sum
+      const float4 sc = *reinterpret_cast<const float4*>(scs + c4);
+      v.x *= sc.x; v.y *= sc.y; v.z *= sc.z; v.w *= sc.w;
+    }
+    float* dst = out + static_cast<size_t>(m) * N + n;
+    if (ovec && n + 3 < N) {
+      *reinterpret_cast<float4*>(dst) = v;
+    } else {
+      const float vv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (n + i < N) dst[i] = vv[i];
+      }
+    }
+  }
+  if (split > 1) cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// -- the short tile (M <= 32): mma.sync ---------------------------------------
+//
+// A 32 x 32 output tile; its 4 warps each compute all of it over every
+// fourth k-unit (m16n8k8 TF32, two m16 row tiles x four n8 tiles a warp).
+
+constexpr int kShBM = 32;
+constexpr int kShBN = 32;
+constexpr int kShWK = 4;
+constexpr int kShThreads = 32 * kShWK;
+constexpr int kShStages = 4;  // cp.async ring depth
+
+// Row strides. x (floats): a warp's float2 reads (rows g, columns 2t) need
+// stride = 8 mod 16, its float4 reads (W2) 16 mod 32. Codes: a warp reads
+// word g of rows t (W4/W2: 8 words a row, no padding) or of rows 2t (W8:
+// stride = 4 mod 8 words).
+template <int BITS>
+__host__ __device__ constexpr int sh_xstride() { return kTcBK + (BITS == 2 ? 16 : 8); }
+template <int BITS>
+__host__ __device__ constexpr int sh_wstride() { return BITS == 8 ? kShBN + 16 : kShBN; }
+template <int BITS>
+__host__ __device__ constexpr int sh_stage_bytes() {
+  return kShBM * sh_xstride<BITS>() * 4 + (kTcBK * BITS / 8) * sh_wstride<BITS>();
+}
+// The ring, or (after the mainloop, in the same memory) the warps' partial
+// tiles; then the tile's per-channel scales. spec.qmm_tc_smem mirrors this.
+template <int BITS>
+__host__ __device__ constexpr int sh_union_bytes() {
+  constexpr int ring = kShStages * sh_stage_bytes<BITS>();
+  constexpr int red = kShWK * kShBM * (kShBN + 4) * 4;
+  return ring > red ? ring : red;
+}
+template <int BITS>
+__host__ __device__ constexpr int sh_smem_bytes() { return sh_union_bytes<BITS>() + kShBN * 4; }
+
+// d += a (16 x 8, row) * b (8 x 8, col), TF32 in, f32 accumulate. Fragments
+// of thread (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4); b0 (k t, n g), b1 (k t + 4, n g);
+// d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// B fragments of one k-unit for the 4 n8 tiles of the 32 columns, straight
+// from the packed bytes (see the note: byte i of the word at column 4g
+// feeds tile i; the k-permutation puts both k of a fragment in one byte,
+// or in two rows for W8). b[j][i][0..1]: MMA j of the unit.
+template <int BITS>
+__device__ __forceinline__ void sh_b_frags(const uint8_t* ws, int unit, int g, int t,
+                                           uint32_t (&b)[tc_unit<BITS>() / 8][4][2]) {
+  constexpr int kWS = sh_wstride<BITS>();
+  if constexpr (BITS == 8) {
+    const uint32_t w0 = *reinterpret_cast<const uint32_t*>(ws + (unit * 8 + 2 * t) * kWS + 4 * g);
+    const uint32_t w1 = *reinterpret_cast<const uint32_t*>(ws + (unit * 8 + 2 * t + 1) * kWS + 4 * g);
+    const uint32_t u0 = w0 ^ 0x80808080u, u1 = w1 ^ 0x80808080u;  // int8 -> offset binary
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      b[0][i][0] = code_tf32((u0 >> (8 * i)) & 0xFFu, 8388736.f);
+      b[0][i][1] = code_tf32((u1 >> (8 * i)) & 0xFFu, 8388736.f);
+    }
+  } else {
+    constexpr uint32_t kMask = (1u << BITS) - 1u;
+    constexpr float kBias = 8388608.f + (1 << (BITS - 1));
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(ws + (unit * 4 + t) * kWS + 4 * g);
+#pragma unroll
+    for (int j = 0; j < tc_unit<BITS>() / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        b[j][i][0] = code_tf32((w >> (8 * i + BITS * 2 * j)) & kMask, kBias);
+        b[j][i][1] = code_tf32((w >> (8 * i + BITS * (2 * j + 1))) & kMask, kBias);
+      }
+  }
+}
+
+// x (E, M, K) @ (codes (E, K*bits/8, N) . scales (E, G, N)) -> (E, M, N),
+// short tile. Grid: (N / 32, M / 32, E * split); the `split` blocks of one
+// (tile, expert) form a cluster along z and each takes a contiguous share
+// of K's stages. GROUPED: G > 1, scales folded per group.
+template <int BITS, bool GROUPED>
+__global__ void __launch_bounds__(kShThreads)
+qmm_short_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+                 const float* __restrict__ s, float* __restrict__ out,
+                 int M, int K, int N, int G, int split, int wvec) {
+  constexpr int kUnit = tc_unit<BITS>();
+  constexpr int kSub = kUnit / 8;           // MMAs per k-unit
+  constexpr int kUnits = kTcBK / kUnit;     // k-units per stage
+  constexpr int kXS = sh_xstride<BITS>();
+  constexpr int kStage = sh_stage_bytes<BITS>();
+  constexpr int kXBytes = kShBM * kXS * 4;
+  constexpr int kMT = kShBM / 16;           // m16 row tiles
+  constexpr int kRS = kShBN + 4;            // row stride of the partial tiles
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int rank = blockIdx.z % split;
+  const int e = blockIdx.z / split;
+  x += static_cast<size_t>(e) * M * K;
+  wp += static_cast<size_t>(e) * (K / (8 / BITS)) * N;
+  s += static_cast<size_t>(e) * G * N;
+  out += static_cast<size_t>(e) * M * N;
+  const int m0 = blockIdx.y * kShBM;
+  const int n0 = blockIdx.x * kShBN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wk = tid >> 5;  // the warp's share of the k-units
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  // this block's stages: a contiguous share of K
+  const int tiles = (K + kTcBK - 1) / kTcBK;
+  const int share = (tiles + split - 1) / split;
+  const int t_begin = min(tiles, rank * share);
+  const int t_end = min(tiles, t_begin + share);
+  const int k_end = min(K, t_end * kTcBK);
+  const int ntiles = t_end - t_begin;
+  auto load_stage = [&](int slot, int tile) {
+    tc_load_stage<BITS, kShBM, kShBN, kXS, sh_wstride<BITS>(), kShThreads>(
+        reinterpret_cast<float*>(smem + slot * kStage), smem + slot * kStage + kXBytes, x, wp,
+        M, K, N, m0, n0, tile * kTcBK, wvec);
+  };
+
+  float acc[kMT][4][4];
+  float tot[kMT][4][4];  // GROUPED: the scaled sum of the finished groups
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        acc[mt][i][c] = 0.f;
+        if constexpr (GROUPED) tot[mt][i][c] = 0.f;
+      }
+
+  // this thread's 8 output columns are ncol .. ncol + 7
+  const int ncol = n0 + 8 * t;
+  const int group = K / G;
+  int cur_g = -1;
+  auto fold = [&](int grp) {  // tot += acc * s[grp, col]; acc = 0
+    float sc[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      sc[i] = ncol + i < N ? __ldg(s + static_cast<size_t>(grp) * N + ncol + i) : 0.f;
+    }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          tot[mt][i][c] = fmaf(acc[mt][i][c], sc[4 * (c & 1) + i], tot[mt][i][c]);
+          acc[mt][i][c] = 0.f;
+        }
+  };
+
+  // per-channel scales of the tile's columns, fetched with the first stage
+  float* scs = reinterpret_cast<float*>(smem + sh_union_bytes<BITS>());
+  if constexpr (!GROUPED) {
+    if (tid < kShBN) {
+      const bool in = n0 + tid < N;
+      __pipeline_memcpy_async(scs + tid, in ? s + n0 + tid : s, 4, in ? 0 : 4);
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < kShStages - 1; ++st) {
+    if (st < ntiles) load_stage(st, t_begin + st);
+    __pipeline_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    __pipeline_wait_prior(kShStages - 2);  // this thread's copies of stage `it` landed
+    __syncthreads();  // everyone's landed, and the slot of stage it - 1 is free
+    const int nxt = it + kShStages - 1;
+    if (nxt < ntiles) load_stage(nxt % kShStages, t_begin + nxt);
+    __pipeline_commit();
+
+    const int tile = t_begin + it;
+    const float* xs = reinterpret_cast<const float*>(smem + (it % kShStages) * kStage);
+    const uint8_t* ws = smem + (it % kShStages) * kStage + kXBytes;
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) {
+      const int kk = tile * kTcBK + u * kUnit;
+      if ((tile * kUnits + u) % kShWK != wk || kk >= k_end) continue;  // warp-uniform
+      if constexpr (GROUPED) {
+        const int grp = kk / group;
+        if (grp != cur_g) {
+          if (cur_g >= 0) fold(cur_g);
+          cur_g = grp;
+        }
+      }
+      // A: rows (g, g + 8) of each m16 tile, k-unit columns t * kUnit/4 ..
+      uint32_t ahi[kSub][kMT][4], alo[kSub][kMT][4];
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        const float* xa = xs + (mt * 16 + g) * kXS + u * kUnit + t * (kUnit / 4);
+        const float* xb = xa + 8 * kXS;
+        float va[2 * kSub], vb[2 * kSub];
+        if constexpr (kSub == 1) {
+          const float2 p = *reinterpret_cast<const float2*>(xa);
+          const float2 q = *reinterpret_cast<const float2*>(xb);
+          va[0] = p.x; va[1] = p.y; vb[0] = q.x; vb[1] = q.y;
+        } else {
+          const float4 p = *reinterpret_cast<const float4*>(xa);
+          const float4 q = *reinterpret_cast<const float4*>(xb);
+          va[0] = p.x; va[1] = p.y; va[2] = p.z; va[3] = p.w;
+          vb[0] = q.x; vb[1] = q.y; vb[2] = q.z; vb[3] = q.w;
+        }
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          split_tf32(va[2 * j], ahi[j][mt][0], alo[j][mt][0]);      // (g, t)
+          split_tf32(vb[2 * j], ahi[j][mt][1], alo[j][mt][1]);      // (g + 8, t)
+          split_tf32(va[2 * j + 1], ahi[j][mt][2], alo[j][mt][2]);  // (g, t + 4)
+          split_tf32(vb[2 * j + 1], ahi[j][mt][3], alo[j][mt][3]);  // (g + 8, t + 4)
+        }
+      }
+      uint32_t b[kSub][4][2];
+      sh_b_frags<BITS>(ws, u, g, t, b);
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(acc[mt][i], ahi[j][mt], b[j][i][0], b[j][i][1]);
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) mma_tf32(acc[mt][i], alo[j][mt], b[j][i][0], b[j][i][1]);
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the ring is idle: reuse it for the partial tiles
+  if constexpr (GROUPED) {
+    if (cur_g >= 0) fold(cur_g);
+  }
+
+  // every warp's partial tile, red[wk][row][col] (the n8 tile i, column
+  // 2t + c of thread (g, t) is column 8t + 4c + i)
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = 2 * h + q;
+        float4 v;
+        if constexpr (GROUPED) {
+          v = make_float4(tot[mt][0][c], tot[mt][1][c], tot[mt][2][c], tot[mt][3][c]);
+        } else {
+          v = make_float4(acc[mt][0][c], acc[mt][1][c], acc[mt][2][c], acc[mt][3][c]);
+        }
+        *reinterpret_cast<float4*>(red + (wk * kShBM + mt * 16 + g + 8 * h) * kRS + 8 * t +
+                                   4 * q) = v;
+      }
+  tc_reduce_store<kShBM, kShBN, kShWK, kShThreads, GROUPED>(red, scs, out, M, N, m0, n0, split,
+                                                           rank);
+}
+
+// -- the wide tile (M > 32): wgmma in bf16 -----------------------------------
+//
+// One warpgroup (4 warps) per block: a 64 x 128 output tile, warp w owning
+// rows 16w .. 16w + 15, with wgmma.m64n128k16 bf16 (twice the TF32 rate,
+// half its shared memory a B tile). The codes are exact in bf16 too; x is
+// split in three, x = h1 + h2 + h3, each the upper half (bf16 by
+// truncation) of the remaining f32 residual: |x - h1 - h2 - h3| < 2^-21 |x|,
+// the short tile's bound, for three passes that cost less than two TF32
+// passes in tensor time and in shared-memory traffic. x stages through the
+// cp.async ring as f32 rows of kTcBK + 8 floats (the A reads, float2 at k
+// 2t and 2t + 8 of rows g and g + 8, hit every bank once), codes as packed
+// rows; each stage's codes are unpacked once per block into bf16 B tiles,
+// K-major in the canonical no-swizzle layout: per k16 step, core matrices
+// of 8 columns x 8 k (128 contiguous bytes), the two k halves kWdLBO bytes
+// apart and the 16 column groups kWdSBO apart (padded past 256 so that the
+// unpacking stores hit every bank once). The wgmma reads B there and A
+// (h1, h2, h3) from registers, in the natural k order.
+constexpr int kWdBM = 64;
+constexpr int kWdBN = 128;
+constexpr int kWdThreads = 128;
+constexpr int kWdStages = 3;          // cp.async ring depth
+constexpr int kWdXS = kTcBK + 8;      // x row stride, floats
+constexpr int kWdLBO = 128;           // bytes between the k halves of a core column
+constexpr int kWdSBO = 272;           // bytes between groups of 8 columns
+constexpr int kWdSteps = kTcBK / 16;  // k16 steps a stage
+constexpr int kWdStepBytes = (kWdBN / 8) * kWdSBO;  // one step's B tile
+
+template <int BITS>
+__host__ __device__ constexpr int wd_stage_bytes() {
+  return kWdBM * kWdXS * 4 + (kTcBK * BITS / 8) * kWdBN;
+}
+template <int BITS>
+__host__ __device__ constexpr int wd_union_bytes() {  // the ring, or the epilogue's tile
+  constexpr int ring = kWdStages * wd_stage_bytes<BITS>();
+  constexpr int red = kWdBM * (kWdBN + 4) * 4;
+  return ring > red ? ring : red;
+}
+// ring | one stage's B tiles | per-channel scales; spec.qmm_tc_smem mirrors this
+template <int BITS>
+__host__ __device__ constexpr int wd_smem_bytes() {
+  return wd_union_bytes<BITS>() + kWdSteps * kWdStepBytes + kWdBN * 4;
+}
+
+// Shared-memory matrix descriptor of one k16 step's B tile (no swizzle).
+__device__ __forceinline__ uint64_t wd_desc(const void* tile) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kWdLBO >> 4) << 16) |
+         (static_cast<uint64_t>(kWdSBO >> 4) << 32);
+}
+
+// d (64 x 128, f32) += a (64 x 16, bf16, registers) * b (16 x 128, bf16,
+// shared). a: thread (g, t) of warp w holds rows 16w + g (a0, a2) and + 8
+// (a1, a3), k pairs 2t (a0, a1) and 2t + 8 (a2, a3), the lower k in the
+// low half; d[4j .. 4j + 3]: columns 8j + 2t, + 1 of rows g (d0, d1) and
+// g + 8 (d2, d3).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// The accumulators are written asynchronously: around the wgmmas, tell the
+// compiler that every one of them may change.
+__device__ __forceinline__ void wd_fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void wd_wait_all(float (&d)[64]) {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wd_fence_acc(d);
+}
+
+// Two offset-binary fields as a bf16 pair, each field - offset: (128 +
+// field) built in the mantissa minus bias = (128 + offset); the lower k in
+// the low half.
+__device__ __forceinline__ uint32_t bf16_pair(uint32_t fields, uint32_t bias) {
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(fields | 0x43004300u), "r"(bias));
+  return r;
+}
+
+// x (E, M, K) @ (codes (E, K*bits/8, N) . scales (E, G, N)) -> (E, M, N),
+// wide tile; grid (N / 128, M / 64, E * split) and split as the short
+// tile's. GROUPED: G > 1 with groups a whole number of k16 steps.
+template <int BITS, bool GROUPED>
+__global__ void __launch_bounds__(kWdThreads)
+qmm_wide_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+                const float* __restrict__ s, float* __restrict__ out,
+                int M, int K, int N, int G, int split, int wvec) {
+  constexpr int kStage = wd_stage_bytes<BITS>();
+  constexpr int kXBytes = kWdBM * kWdXS * 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* bt = smem + wd_union_bytes<BITS>();  // B tiles, bf16
+  float* scs = reinterpret_cast<float*>(bt + kWdSteps * kWdStepBytes);
+
+  const int rank = blockIdx.z % split;
+  const int e = blockIdx.z / split;
+  x += static_cast<size_t>(e) * M * K;
+  wp += static_cast<size_t>(e) * (K / (8 / BITS)) * N;
+  s += static_cast<size_t>(e) * G * N;
+  out += static_cast<size_t>(e) * M * N;
+  const int m0 = blockIdx.y * kWdBM;
+  const int n0 = blockIdx.x * kWdBN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  const int tiles = (K + kTcBK - 1) / kTcBK;
+  const int share = (tiles + split - 1) / split;
+  const int t_begin = min(tiles, rank * share);
+  const int t_end = min(tiles, t_begin + share);
+  const int k_end = min(K, t_end * kTcBK);
+  const int ntiles = t_end - t_begin;
+  auto load_stage = [&](int slot, int tile) {
+    tc_load_stage<BITS, kWdBM, kWdBN, kWdXS, kWdBN, kWdThreads>(
+        reinterpret_cast<float*>(smem + slot * kStage), smem + slot * kStage + kXBytes, x, wp,
+        M, K, N, m0, n0, tile * kTcBK, wvec);
+  };
+
+  // Unpack a stage's codes into the B tiles: thread = item (step, k half h,
+  // column quad q) takes 8 k x 4 columns and stores 4 core rows of 8 bf16
+  // codes (16 bytes each); a warp's 32 items share (step, h), so its loads
+  // are 32 consecutive words and its stores conflict-free.
+  auto unpack_stage = [&](const uint8_t* ws) {
+    const int q = tid % (kWdBN / 4);
+    const int sh = tid / (kWdBN / 4);  // step * 2 + h
+    const int k8 = 8 * sh;             // first k of the item within the stage
+    uint32_t c[4][4];                  // c[column][k pair]
+    if constexpr (BITS == 4) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // packed row k8/2 + r: k8 + 2r (low nibble), + 1
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(ws + (k8 / 2 + r) * kWdBN + 4 * q);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t byte = __byte_perm(w, 0, 0x4440 + i);  // byte i, alone
+          c[i][r] = bf16_pair((byte * 4097u) & 0x000F000Fu, 0x43084308u);
+        }
+      }
+    } else if constexpr (BITS == 2) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {  // packed row k8/4 + r: k8 + 4r .. + 3
+        const uint32_t w = *reinterpret_cast<const uint32_t*>(ws + (k8 / 4 + r) * kWdBN + 4 * q);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t byte = __byte_perm(w, 0, 0x4440 + i);
+          c[i][2 * r] = bf16_pair((byte * 16385u) & 0x00030003u, 0x43024302u);
+          c[i][2 * r + 1] = bf16_pair(((byte >> 4) * 16385u) & 0x00030003u, 0x43024302u);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {  // packed rows k8 + 2r, + 1
+        const uint32_t w0 =
+            *reinterpret_cast<const uint32_t*>(ws + (k8 + 2 * r) * kWdBN + 4 * q) ^ 0x80808080u;
+        const uint32_t w1 =
+            *reinterpret_cast<const uint32_t*>(ws + (k8 + 2 * r + 1) * kWdBN + 4 * q) ^ 0x80808080u;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {  // exact small integers: their upper halves are bf16
+          const uint32_t lo = code_tf32((w0 >> (8 * i)) & 0xFFu, 8388736.f);
+          const uint32_t hi = code_tf32((w1 >> (8 * i)) & 0xFFu, 8388736.f);
+          c[i][r] = __byte_perm(lo, hi, 0x7632);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = 4 * q + i;
+      *reinterpret_cast<uint4*>(bt + (sh / 2) * kWdStepBytes + (n / 8) * kWdSBO +
+                                (sh % 2) * kWdLBO + (n % 8) * 16) =
+          make_uint4(c[i][0], c[i][1], c[i][2], c[i][3]);
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // visible to wgmma
+  };
+
+  float d[64];
+  float tot[64];  // GROUPED: the scaled sum of the finished groups
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    d[i] = 0.f;
+    if constexpr (GROUPED) tot[i] = 0.f;
+  }
+  const int group = K / G;
+  int cur_g = -1;
+  auto fold = [&](int grp) {  // tot += d * s[grp, col]; d = 0 (d is settled)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int n = n0 + 8 * j + 2 * t + q;
+        const float sc = n < N ? __ldg(s + static_cast<size_t>(grp) * N + n) : 0.f;
+        tot[4 * j + q] = fmaf(d[4 * j + q], sc, tot[4 * j + q]);
+        tot[4 * j + 2 + q] = fmaf(d[4 * j + 2 + q], sc, tot[4 * j + 2 + q]);
+        d[4 * j + q] = 0.f;
+        d[4 * j + 2 + q] = 0.f;
+      }
+  };
+
+  if constexpr (!GROUPED) {  // per-channel scales, fetched with the first stage
+    const bool in = n0 + tid < N;
+    __pipeline_memcpy_async(scs + tid, in ? s + n0 + tid : s, 4, in ? 0 : 4);
+  }
+#pragma unroll
+  for (int st = 0; st < kWdStages - 1; ++st) {
+    if (st < ntiles) load_stage(st, t_begin + st);
+    __pipeline_commit();
+  }
+  for (int it = 0; it < ntiles; ++it) {
+    __pipeline_wait_prior(kWdStages - 2);  // this thread's copies of stage `it` landed
+    __syncthreads();  // everyone's landed; the slot of stage it - 1 is free
+    const int nxt = it + kWdStages - 1;
+    if (nxt < ntiles) load_stage(nxt % kWdStages, t_begin + nxt);
+    __pipeline_commit();
+
+    const int tile = t_begin + it;
+    const unsigned char* cur = smem + (it % kWdStages) * kStage;
+    unpack_stage(cur + kXBytes);
+    // A of every step and level: a0 .. a3 are (row g, k 2t), (g + 8, 2t),
+    // (g, 2t + 8), (g + 8, 2t + 8) of this warp's 16 rows, each a pair of
+    // neighbours in x; level lv is the upper half of the residual after
+    // the levels before it
+    uint32_t a[kWdSteps][3][4];
+    const float* xa = reinterpret_cast<const float*>(cur) + (16 * warp + g) * kWdXS + 2 * t;
+#pragma unroll
+    for (int st = 0; st < kWdSteps; ++st)
+#pragma unroll
+      for (int rg = 0; rg < 4; ++rg) {
+        const float2 v = *reinterpret_cast<const float2*>(xa + (rg & 1) * 8 * kWdXS + 16 * st +
+                                                          (rg >> 1) * 8);
+        float r0 = v.x, r1 = v.y;
+#pragma unroll
+        for (int lv = 0; lv < 3; ++lv) {
+          a[st][lv][rg] = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
+          r0 = __fsub_rn(r0, __uint_as_float(__float_as_uint(r0) & 0xFFFF0000u));
+          r1 = __fsub_rn(r1, __uint_as_float(__float_as_uint(r1) & 0xFFFF0000u));
+        }
+      }
+    __syncthreads();  // every B tile of the stage is written
+    wd_fence_acc(d);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int st = 0; st < kWdSteps; ++st) {
+      const int kk = tile * kTcBK + 16 * st;
+      if (kk >= k_end) break;  // block-uniform
+      if constexpr (GROUPED) {
+        const int grp = kk / group;
+        if (grp != cur_g) {
+          if (cur_g >= 0) {
+            wd_wait_all(d);
+            fold(cur_g);
+            wd_fence_acc(d);
+            asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+          }
+          cur_g = grp;
+        }
+      }
+      const uint64_t desc = wd_desc(bt + st * kWdStepBytes);
+#pragma unroll
+      for (int lv = 0; lv < 3; ++lv) wgmma_bf16(d, a[st][lv], desc);
+    }
+    wd_wait_all(d);  // A registers and the B tiles are free again
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // the ring is idle: reuse it for the tile
+  if constexpr (GROUPED) {
+    if (cur_g >= 0) fold(cur_g);
+  }
+  float* red = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float2 v;
+      if constexpr (GROUPED) {
+        v = make_float2(tot[4 * j + 2 * h], tot[4 * j + 2 * h + 1]);
+      } else {
+        v = make_float2(d[4 * j + 2 * h], d[4 * j + 2 * h + 1]);
+      }
+      *reinterpret_cast<float2*>(red + (16 * warp + g + 8 * h) * (kWdBN + 4) + 8 * j + 2 * t) = v;
+    }
+  tc_reduce_store<kWdBM, kWdBN, 1, kWdThreads, GROUPED>(red, scs, out, M, N, m0, n0, split,
+                                                         rank);
+}
+
+// Launch `kern` as the plan says: `threads` a block, `smem` bytes of
+// dynamic shared memory (which must be what the instance needs: the plan
+// and the kernel agree, or nothing runs), and K split over a cluster of
+// `split` blocks along z.
+template <int BITS, bool GROUPED, int TILE>
+int launch_tc_kernel(void (*kern)(const float*, const uint8_t*, const float*, float*, int, int,
+                                  int, int, int, int),
+                     int need, int bm, int bn, int threads, const float* x, const uint8_t* wp,
+                     const float* s, float* out, int E, int M, int K, int N, int G, int split,
+                     int smem, int wvec, cudaStream_t st) {
+  if (smem != need) return static_cast<int>(cudaErrorInvalidValue);
+  static bool cap_raised = false;  // once per instance: dynamic shared memory above 48 KB
+  if (!cap_raised) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cap_raised = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + bn - 1) / bn, (M + bm - 1) / bm, E * split);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = need;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = split;
+  cfg.attrs = attr;
+  cfg.numAttrs = split > 1 ? 1 : 0;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, x, wp, s, out, M, K, N, G, split, wvec));
+}
+
+template <int BITS, bool GROUPED>
+int launch_tc_tile(const float* x, const uint8_t* wp, const float* s, float* out, int E,
+                   int M, int K, int N, int G, int tile, int split, int smem, int wvec,
+                   cudaStream_t st) {
+  if (tile == 0) {
+    return launch_tc_kernel<BITS, GROUPED, 0>(qmm_short_kernel<BITS, GROUPED>,
+                                              sh_smem_bytes<BITS>(), kShBM, kShBN, kShThreads,
+                                              x, wp, s, out, E, M, K, N, G, split, smem, wvec,
+                                              st);
+  }
+  return launch_tc_kernel<BITS, GROUPED, 1>(qmm_wide_kernel<BITS, GROUPED>,
+                                            wd_smem_bytes<BITS>(), kWdBM, kWdBN, kWdThreads, x,
+                                            wp, s, out, E, M, K, N, G, split, smem, wvec, st);
+}
+
+// The tensor-core bodies over E stacked problems, dispatched on bits and G.
+// Scale groups must be a whole number of k-units: of the short tile's (8 k,
+// 16 for W2), and of 16 k for the wide tile.
+int launch_tc_any(const void* x, const void* wp, const void* s, void* out, int E, int M,
+                  int K, int N, int G, int bits, int tile, int split, int smem, int wvec,
+                  cudaStream_t st) {
+  const int unit = tile == 1 ? 16 : (bits == 2 ? 16 : 8);
+  if ((tile != 0 && tile != 1) || (split != 1 && split != 2 && split != 4 && split != 8) ||
+      E * split > 65535 || (G > 1 && (K / G) % unit != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* xf = static_cast<const float*>(x);
+  const uint8_t* w8 = static_cast<const uint8_t*>(wp);
+  const float* sf = static_cast<const float*>(s);
+  float* of = static_cast<float*>(out);
+#define QTC_LAUNCH(B, GR) \
+  return launch_tc_tile<B, GR>(xf, w8, sf, of, E, M, K, N, G, tile, split, smem, wvec, st)
+  switch (bits * 2 + (G > 1)) {
+    case 4: QTC_LAUNCH(2, false);
+    case 5: QTC_LAUNCH(2, true);
+    case 8: QTC_LAUNCH(4, false);
+    case 9: QTC_LAUNCH(4, true);
+    case 16: QTC_LAUNCH(8, false);
+    case 17: QTC_LAUNCH(8, true);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QTC_LAUNCH
 }
 
 }  // namespace
@@ -629,43 +1486,62 @@ int qgemv_launch(const void* x, const void* wp, const void* s, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Bodies of the tiled entry points, chosen by the caller's plan
+// (kernels/spec.py plan_qmatmul): the CUDA-core tile, the tensor-core tile,
+// and (qmatmul_grouped, M <= 8) the decode body.
+enum Body { kBodySimt = 0, kBodyTc = 1, kBodyGemv = 2 };
+
+// vec: the widest copy of packed-code row pieces that N and the codes'
+// base allow, 16, 4 or 1 bytes. tile/split/smem: the tensor-core plan.
 int qmatmul_launch(const void* x, const void* wp, const void* s, void* out,
-                   int M, int K, int N, int G, int bits, int vec, void* stream) {
+                   int M, int K, int N, int G, int bits, int vec, int body, int tile,
+                   int split, int smem, void* stream) {
   if (M < 1 || K < 1 || N < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == kBodyTc) {
+    const int err = launch_tc_any(x, wp, s, out, 1, M, K, N, G, bits, tile, split, smem, vec, st);
+    return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  }
+  if (body != kBodySimt) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 block(kMmThreads);
   const dim3 grid((N + kMmBN - 1) / kMmBN, (M + kMmBM - 1) / kMmBM, kMmSplit);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* xf = static_cast<const float*>(x);
   const uint8_t* w8 = static_cast<const uint8_t*>(wp);
   const float* sf = static_cast<const float*>(s);
   float* of = static_cast<float*>(out);
+  const int v4 = vec >= 4;
   switch (bits) {
-    case 2: qmatmul_kernel<2><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
-    case 4: qmatmul_kernel<4><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
-    case 8: qmatmul_kernel<8><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
+    case 2: qmatmul_kernel<2><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v4); break;
+    case 4: qmatmul_kernel<4><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v4); break;
+    case 8: qmatmul_kernel<8><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v4); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Stacked experts: x (E, M, K), wp (E, K*bits/8, N), s (E, G, N), out
-// (E, M, N). M <= 8 rows per expert take the decode body, more the tile.
+// (E, M, N). The decode body takes M <= 8 rows per expert; the tiles any M.
 int qmatmul_grouped_launch(const void* x, const void* wp, const void* s, void* out,
-                           int E, int M, int K, int N, int G, int bits, int vec,
-                           void* stream) {
+                           int E, int M, int K, int N, int G, int bits, int vec, int body,
+                           int tile, int split, int smem, void* stream) {
   if (E < 1 || E > 65535 || M < 1 || K < 1 || N < 1 || G < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == kBodyTc) {
+    const int err = launch_tc_any(x, wp, s, out, E, M, K, N, G, bits, tile, split, smem, vec, st);
+    return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  }
   const float* xf = static_cast<const float*>(x);
   const uint8_t* w8 = static_cast<const uint8_t*>(wp);
   const float* sf = static_cast<const float*>(s);
   float* of = static_cast<float*>(out);
-  if (M <= kMaxM) {
+  if (body == kBodyGemv) {
+    if (M > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
     const dim3 block(kGemvTX, kGemvTY);
     const dim3 grid((N + kGemvCols - 1) / kGemvCols, E);
     // 16-byte copies of packed rows: N % 16 == 0 and an aligned base
-    const int v16 = N % 16 == 0 && reinterpret_cast<uintptr_t>(wp) % 16 == 0;
+    const int v16 = vec == 16;
 #define QGG_LAUNCH(B, GR) \
   qgemv_grouped_kernel<B, GR><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v16)
     switch (bits * 2 + (G > 1)) {
@@ -678,15 +1554,18 @@ int qmatmul_grouped_launch(const void* x, const void* wp, const void* s, void* o
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
 #undef QGG_LAUNCH
-  } else {
+  } else if (body == kBodySimt) {
     const dim3 block(kMmThreads);
     const dim3 grid((N + kMmBN - 1) / kMmBN, (M + kMmBM - 1) / kMmBM, E);
+    const int v4 = vec >= 4;
     switch (bits) {
-      case 2: qmatmul_grouped_kernel<2><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
-      case 4: qmatmul_grouped_kernel<4><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
-      case 8: qmatmul_grouped_kernel<8><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
+      case 2: qmatmul_grouped_kernel<2><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v4); break;
+      case 4: qmatmul_grouped_kernel<4><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v4); break;
+      case 8: qmatmul_grouped_kernel<8><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, v4); break;
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,25 +9,40 @@ package's Pallas TPU kernels (``src/repro/kernels/qmatmul/kernel.py``):
            and is summed through distributed shared memory; 32-bit loads
            of packed bytes are unpacked in registers and each group's scale
            multiplies its partial sum.
-  qmatmul  replaces ``kernel.py::qmatmul`` (prefill GEMM). Bound by f32
-           operations at M = 512: 64 x 64 output tiles stage x and the
-           unpacked, scaled weight tile through shared memory over K, with
-           the next k-step's loads in flight during the math.
+  qmatmul  replaces ``kernel.py::qmatmul`` (prefill GEMM, any M). The
+           tensor-core body: MMAs on exact integer codes with x split so
+           that its parts carry it to < 2^-21 relative (well inside the
+           1e-4 kernel-vs-plain limit), each group's scale applied to its
+           partial sum. Up to 32 rows a 32 x 32 mma.sync TF32 tile (x =
+           hi + lo, two passes) unpacks packed bytes straight into B
+           fragments under a k-permutation that puts both k of a thread's
+           fragment in one byte; above, one warpgroup's wgmma.m64n128k16
+           bf16 (x = h1 + h2 + h3, three passes: cheaper than two TF32
+           passes) reads B tiles unpacked once per block into shared
+           memory. x and code tiles stream through a cp.async ring; K
+           splits over a cluster of up to 8 blocks (summed in rank order
+           through distributed shared memory) until the grid fills the
+           card. Bound by the passes' operations at M 512; at the engine's
+           32-row chunk by latency. Scale groups that are not a whole
+           number of k-units (8 k, 16 for W2) take the CUDA-core body (64 x
+           64 f32 FMA tile).
   qmatmul_grouped  replaces ``kernel.py::qmatmul_grouped`` (stacked MoE
-           experts, x (E, M, K) @ (E, K*bits/8, N) codes). Bound by f32
-           operations at the serving shapes (E 64, M 8 or 64), each call
-           streaming ~92 MB of codes: M <= 8 runs one block per (expert,
-           64 columns) fed by a 4-stage cp.async ring, more rows take
-           qmatmul's tile; the expert is on the grid and its operands are
-           found by offsets into the stacked codes, so no (E, K, N)
-           dequantized copy exists.
+           experts, x (E, M, K) @ (E, K*bits/8, N) codes). M <= 8 runs the
+           decode body, one block per (expert, 64 columns) fed by a 4-stage
+           cp.async ring, f32 FMA; more rows take qmatmul's tensor-core
+           body (or its CUDA-core body for short groups) with the expert on
+           the grid. Operands are found by offsets into the stacked codes,
+           so no (E, K, N) dequantized copy exists.
 
-All mask ragged M and N, so the TPU-only padding of ``ops._qmm_2d`` does
-not exist here. The library is compiled with ``nvcc`` for ``sm_90a`` at
-first use, from the sources beside this file, through ``kernels/build.py``
-(``build/kernels/`` at the repository root, keyed by a hash of the sources
-and flags), and bound through ``ctypes``. Nothing is built when this
-module is imported.
+The body, tile and split of a call come from ``spec.plan_qmatmul`` (the
+shape alone) and are passed to the launcher; :data:`BODY_LAUNCHES` counts
+launches per body. All mask ragged M, N and K, so the TPU-only padding of
+``ops._qmm_2d`` does not exist here, and all are deterministic (fixed
+summation orders, no atomics). The library is compiled with ``nvcc`` for
+``sm_90a`` at first use, from the sources beside this file, through
+``kernels/build.py`` (``build/kernels/`` at the repository root, keyed by a
+hash of the sources and flags), and bound through ``ctypes``. Nothing is
+built when this module is imported.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 output, launches on the current stream, raises if the launch was refused
@@ -41,13 +56,20 @@ from pathlib import Path
 import torch
 
 from ..build import build_dir, build_library, on_device  # noqa: F401 (build_dir)
-from ..spec import describe_qgemv, describe_qmatmul, describe_qmatmul_grouped
+from ..spec import (describe_qgemv, describe_qmatmul, describe_qmatmul_grouped,
+                    plan_qmatmul)
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "qmatmul.cu",)
 
 # Kernel launches since the last reset_launches(): one per launch that the
 # CUDA runtime accepted.
 LAUNCHES = {"qgemv": 0, "qmatmul": 0, "qmatmul_grouped": 0}
+# The same launches of the tiled kernels by body (spec.plan_qmatmul): "tc"
+# tensor cores, "simt" CUDA cores, "gemv" the grouped decode body.
+BODY_LAUNCHES = {"qmatmul": {"tc": 0, "simt": 0},
+                 "qmatmul_grouped": {"tc": 0, "simt": 0, "gemv": 0}}
+_BODY_CODE = {"simt": 0, "tc": 1, "gemv": 2}
+_TILE_CODE = {"short": 0, "wide": 1}
 
 # Set by load_library(): library path, whether it was compiled in this
 # process, build seconds and the compiler's register/spill report.
@@ -59,6 +81,9 @@ _LIB = None
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for bodies in BODY_LAUNCHES.values():
+        for b in bodies:
+            bodies[b] = 0
 
 
 def load_library() -> ctypes.CDLL:
@@ -70,10 +95,12 @@ def load_library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.qgemv_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
     lib.qgemv_launch.restype = i32
-    lib.qmatmul_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+    # ..., bits, vec, then the plan: body, tile, split, shared-memory bytes
+    lib.qmatmul_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                                   i32, i32, i32, i32, ptr]
     lib.qmatmul_launch.restype = i32
     lib.qmatmul_grouped_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                           i32, i32, i32, ptr]
+                                           i32, i32, i32, i32, i32, i32, i32, ptr]
     lib.qmatmul_grouped_launch.restype = i32
     lib.qmm_error_string.argtypes = [i32]
     lib.qmm_error_string.restype = ctypes.c_char_p
@@ -105,16 +132,25 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
-def _vec(w_packed: torch.Tensor, n: int) -> int:
-    """Whether 4 packed bytes of a row can be read as one 32-bit word."""
-    return int(n % 4 == 0 and w_packed.data_ptr() % 4 == 0)
+def _wvec(w_packed: torch.Tensor, n: int) -> int:
+    """Widest copy of a packed row's pieces that N and the codes' base
+    allow: 16, 4 or 1 bytes."""
+    p = w_packed.data_ptr()
+    return 16 if n % 16 == 0 and p % 16 == 0 else 4 if n % 4 == 0 and p % 4 == 0 else 1
 
 
-def _launched(lib, name: str, err: int) -> None:
+def _plan_args(plan) -> tuple[int, int, int, int]:
+    return (_BODY_CODE[plan.body], _TILE_CODE.get(plan.tile, 0), plan.split,
+            plan.smem)
+
+
+def _launched(lib, name: str, err: int, body: str | None = None) -> None:
     if err != 0:
         msg = lib.qmm_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES[name] += 1
+    if body is not None:
+        BODY_LAUNCHES[name][body] += 1
 
 
 def qgemv(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
@@ -132,7 +168,7 @@ def qgemv(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
         err = lib.qgemv_launch(x.data_ptr(), w_packed.data_ptr(),
                                scales.data_ptr(), out.data_ptr(), sp["M"],
                                sp["K"], sp["N"], sp["G"], bits,
-                               _vec(w_packed, sp["N"]), stream)
+                               int(_wvec(w_packed, sp["N"]) >= 4), stream)
     _launched(lib, "qgemv", err)
     return out
 
@@ -140,10 +176,12 @@ def qgemv(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
 def qmatmul(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
             bits: int) -> torch.Tensor:
     """Prefill GEMM on the card: x (M, K) f32 @ dequant(w_packed, scales)
-    -> (M, N) f32, ragged M and N masked in the kernel."""
+    -> (M, N) f32, ragged M and N masked in the kernel; the body, tile and
+    split of K from ``spec.plan_qmatmul``."""
     sp = describe_qmatmul(tuple(x.shape), tuple(w_packed.shape),
                           tuple(scales.shape), bits=bits)
     _check_operands("qmatmul", x, w_packed, scales)
+    plan = plan_qmatmul(sp["M"], sp["K"], sp["N"], sp["G"], bits)
     lib = load_library()
     x = _aligned(x)
     out = torch.empty((sp["M"], sp["N"]), dtype=torch.float32, device=x.device)
@@ -152,8 +190,8 @@ def qmatmul(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
         err = lib.qmatmul_launch(x.data_ptr(), w_packed.data_ptr(),
                                  scales.data_ptr(), out.data_ptr(), sp["M"],
                                  sp["K"], sp["N"], sp["G"], bits,
-                                 _vec(w_packed, sp["N"]), stream)
-    _launched(lib, "qmatmul", err)
+                                 _wvec(w_packed, sp["N"]), *_plan_args(plan), stream)
+    _launched(lib, "qmatmul", err, plan.body)
     return out
 
 
@@ -161,10 +199,12 @@ def qmatmul_grouped(x: torch.Tensor, w_packed: torch.Tensor,
                     scales: torch.Tensor, *, bits: int) -> torch.Tensor:
     """Stacked-expert GEMM on the card: x (E, M, K) f32 @ dequant(w_packed
     (E, K*bits/8, N) int8, scales (E, G, N) f32) -> (E, M, N) f32, any M,
-    ragged M and N masked in the kernel."""
+    ragged M and N masked in the kernel; the body from
+    ``spec.plan_qmatmul(..., grouped=True)``."""
     sp = describe_qmatmul_grouped(tuple(x.shape), tuple(w_packed.shape),
                                   tuple(scales.shape), bits=bits)
     _check_operands("qmatmul_grouped", x, w_packed, scales)
+    plan = plan_qmatmul(sp["M"], sp["K"], sp["N"], sp["G"], bits, sp["E"], True)
     lib = load_library()
     x = _aligned(x)
     out = torch.empty((sp["E"], sp["M"], sp["N"]), dtype=torch.float32,
@@ -174,6 +214,6 @@ def qmatmul_grouped(x: torch.Tensor, w_packed: torch.Tensor,
         err = lib.qmatmul_grouped_launch(
             x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
             out.data_ptr(), sp["E"], sp["M"], sp["K"], sp["N"], sp["G"], bits,
-            _vec(w_packed, sp["N"]), stream)
-    _launched(lib, "qmatmul_grouped", err)
+            _wvec(w_packed, sp["N"]), *_plan_args(plan), stream)
+    _launched(lib, "qmatmul_grouped", err, plan.body)
     return out

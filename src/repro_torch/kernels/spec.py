@@ -7,8 +7,15 @@ length S, themselves. What stays is the packing contract (K = packed rows
 x values per byte, scales span N, each scale group a whole number of
 packed rows), the GQA grouping of ``kv_decode`` (H % K == 0), and the
 limits the CUDA kernels really have (decode rows, head dim, group size).
+
+``plan_qmatmul`` is the launch plan of the tiled packed matmuls: body,
+tile, split of K, grid and shared memory per block, from the shape alone,
+checked against the card's per-block shared-memory budget.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 # The decode kernel keeps one f32 accumulator per batch row and column in
 # registers; it takes at most this many rows.
@@ -19,6 +26,38 @@ QGEMV_M_MAX = 8
 # KV_HD_MAX values, read in 16-byte vectors of int8 codes (hd % 16 == 0).
 KV_G_MAX = 16
 KV_HD_MAX = 256
+
+# The card the plans are made for, an H100 SXM: its SMs, and the shared
+# memory one block may use (227 KB). Fixed here: no run-time query, so a
+# shape always gets the same plan and the same summation order.
+SM_COUNT = 132
+SMEM_PER_BLOCK = 232_448
+
+# The tensor-core tiles of qmatmul / qmatmul_grouped (csrc/qmatmul.cu
+# mirrors them): name -> (BM, BN, threads, ring stages). "short" (M <= 32)
+# is mma.sync m16n8k8 TF32 (x in two passes), 4 warps each on every fourth
+# k-unit of one 32 x 32 tile; "wide" is one warpgroup's wgmma.m64n128k16
+# bf16 (x in three passes). Both take k in stages of QMM_TC_BK; K is split
+# over a cluster of up to QMM_MAX_SPLIT blocks until the grid holds the
+# tile's target of blocks (the short tile's blocks are small and
+# latency-bound: two an SM).
+QMM_TC_TILES = {"short": (32, 32, 128, 4), "wide": (64, 128, 128, 3)}
+QMM_TC_ARITH = {"short": "tf32x2", "wide": "bf16x3"}
+QMM_WIDE_UNIT = 16  # k a wide-tile step spans: its scale groups are a whole number of them
+QMM_TC_BK = 32
+QMM_SHORT_M = 32
+QMM_MAX_SPLIT = 8
+QMM_TARGET_BLOCKS = {"short": 2 * SM_COUNT, "wide": SM_COUNT}
+# The wide tile splits further while a block keeps at least this many
+# stages, up to one wave of resident blocks; a grid of more than a wave
+# takes the split (of 1 and 2) whose last wave is fullest.
+QMM_WIDE_MIN_STAGES = 8
+# The CUDA-core bodies: qmatmul's and qmatmul_grouped's 64 x 64 tile (K
+# split over a 2-block cluster for qmatmul), and the grouped decode body.
+QMM_SIMT_TILE = (64, 64, 32)
+QMM_SIMT_THREADS = 256
+QMM_GEMV_COLS = 64
+QMM_GEMV_THREADS = 256
 
 
 class KernelSpecError(ValueError):
@@ -111,6 +150,110 @@ def describe_qmatmul_grouped(x_shape, wp_shape, scales_shape, *, bits: int) -> d
     sp = _describe(name, x_shape[1:], wp_shape[1:], scales_shape[1:], bits)
     sp["E"] = E
     return sp
+
+
+def qmm_tc_unit(bits: int) -> int:
+    """k that one thread's B fragment spans in the short tile: one packed
+    byte holds both k of one m16n8k8 (W4, W8: 8) or of two (W2: 16). A
+    scale group must be a whole number of these for the tensor-core body."""
+    return 16 if bits == 2 else 8
+
+
+def qmm_tc_smem(bits: int, tile: str) -> int:
+    """Dynamic shared memory of one tensor-core block, as the kernel lays
+    it out. short: the 4-stage ring (x rows of BK + 8 floats, + 16 for W2;
+    packed rows of 32 bytes, 48 for W8) or the 4 warps' 32 x 36 partial
+    tiles, then 32 scales. wide: the 3-stage ring (x rows of BK + 8 floats,
+    packed rows of 128 bytes) or the 64 x 132 tile, then one stage's bf16 B
+    tiles (BK/16 steps of 16 column groups 272 bytes apart), then 128
+    scales."""
+    bm, bn, threads, stages = QMM_TC_TILES[tile]
+    codes = QMM_TC_BK * bits // 8  # packed rows a stage
+    if tile == "short":
+        stage = bm * (QMM_TC_BK + (16 if bits == 2 else 8)) * 4 + codes * (48 if bits == 8 else 32)
+        return max(stages * stage, 4 * bm * (bn + 4) * 4) + bn * 4
+    stage = bm * (QMM_TC_BK + 8) * 4 + codes * bn
+    return (max(stages * stage, bm * (bn + 4) * 4)
+            + (QMM_TC_BK // QMM_WIDE_UNIT) * (bn // 8) * 272 + bn * 4)
+
+
+class QmmPlan(NamedTuple):
+    """Launch plan of one qmatmul / qmatmul_grouped call."""
+    body: str            # "tc" (tensor cores), "simt" (CUDA cores), "gemv" (grouped, M <= 8)
+    tile: str            # tile class: "short" or "wide" (tc), else the body's name
+    arith: str           # "tf32x2", "bf16x3" (passes over x on the tensor cores) or "f32"
+    bm: int
+    bn: int
+    bk: int
+    split: int           # blocks of a cluster that split K
+    stages: int          # cp.async ring depth (0: loads through registers)
+    threads: int
+    grid: tuple          # (x, y, z) blocks
+    blocks: int
+    smem: int            # shared memory per block, bytes
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_qmatmul(M: int, K: int, N: int, G: int, bits: int, E: int = 1,
+                 grouped: bool = False) -> QmmPlan:
+    """Plan x (E, M, K) @ (codes, scales) -> (E, M, N) from the shape
+    alone. ``grouped`` (qmatmul_grouped): M <= 8 takes the decode body.
+    Otherwise the tensor-core body, unless the scale groups are not a
+    whole number of its k-unit (:func:`qmm_tc_unit`), which takes the
+    CUDA-core tile. The tensor-core tile is the short one up to
+    ``QMM_SHORT_M`` rows, the wide one above (where the groups are a whole
+    number of its 16-k steps; else the short one); K is split over a cluster of
+    2, 4 or 8 blocks until the grid holds the tile's target of blocks, as
+    long as each block keeps at least one ring stage. The wide tile then
+    splits further while blocks keep ``QMM_WIDE_MIN_STAGES`` stages and fit
+    in one wave of resident blocks (from its shared memory), and a grid of
+    more than a wave takes the split whose last wave is fullest."""
+    _check(min(M, K, N, G, E) >= 1 and bits in (2, 4, 8) and K % G == 0,
+           "qmatmul", f"no plan for M={M} K={K} N={N} G={G} bits={bits} E={E}")
+    if grouped and M <= QGEMV_M_MAX:
+        per = 8 // bits
+        stage = (128 // per) * QMM_GEMV_COLS + 128 * QGEMV_M_MAX * 4
+        smem = max(4 * stage, 16 * QGEMV_M_MAX * QMM_GEMV_COLS * 4)
+        grid = (_ceil(N, QMM_GEMV_COLS), E, 1)
+        return QmmPlan("gemv", "gemv", "f32", QGEMV_M_MAX, QMM_GEMV_COLS, 128, 1, 4,
+                       QMM_GEMV_THREADS, grid, grid[0] * grid[1], smem)
+    if G > 1 and (K // G) % qmm_tc_unit(bits):
+        bm, bn, bk = QMM_SIMT_TILE
+        split = 1 if grouped else 2
+        grid = (_ceil(N, bn), _ceil(M, bm), E * split)
+        smem = 2 * bk * 64 * 4 + (0 if grouped else bm * bn * 4)
+        return QmmPlan("simt", "simt", "f32", bm, bn, bk, split, 0, QMM_SIMT_THREADS, grid,
+                       grid[0] * grid[1] * grid[2], smem)
+    wide_groups = G == 1 or (K // G) % QMM_WIDE_UNIT == 0
+    tile = "wide" if M > QMM_SHORT_M and wide_groups else "short"
+    bm, bn, threads, stages = QMM_TC_TILES[tile]
+    base = _ceil(N, bn) * _ceil(M, bm) * E
+    k_stages = _ceil(K, QMM_TC_BK)
+    smem = qmm_tc_smem(bits, tile)
+    _check(smem <= SMEM_PER_BLOCK, "qmatmul",
+           f"{smem} B of shared memory per block > {SMEM_PER_BLOCK}")
+
+    def fits(sp: int) -> bool:  # a legal split: each block keeps a stage
+        return sp <= QMM_MAX_SPLIT and sp <= k_stages and E * sp <= 65535
+
+    split = 1
+    while base * split < QMM_TARGET_BLOCKS[tile] and fits(2 * split):
+        split *= 2
+    if tile == "wide":
+        wave = SM_COUNT * (SMEM_PER_BLOCK // (smem + 1024))  # resident blocks
+        while (fits(2 * split) and base * 2 * split <= wave
+               and k_stages >= 2 * split * QMM_WIDE_MIN_STAGES):
+            split *= 2
+        if base > wave and fits(2) and k_stages >= 2 * QMM_WIDE_MIN_STAGES:
+            fill = [(-(-base * sp // wave) * wave / (base * sp), sp) for sp in (1, 2)]
+            split = min(fill)[1]
+    grid = (_ceil(N, bn), _ceil(M, bm), E * split)
+    return QmmPlan("tc", tile, QMM_TC_ARITH[tile], bm, bn, QMM_TC_BK, split, stages,
+                   threads, grid, base * split, smem)
 
 
 def describe_kv_decode(q_shape, k8_shape, v8_shape=None, kscale_shape=None,

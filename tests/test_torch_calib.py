@@ -67,7 +67,7 @@ def rand():
     jparams = jmodel.init(jax.random.PRNGKey(0))
     jcal = jmake_batches(JCorpus(JCorpusConfig(vocab=cfg.vocab)), 2, 4, 32, seed=1)
     _, model = get_model("brecq_lm_100m", reduced=True)
-    params = params_from_numpy(np_tree(jparams))
+    params = params_from_numpy(np_tree(jparams), device="cpu")
     cal = make_batches(Corpus(CorpusConfig(vocab=cfg.vocab)), 2, 4, 32, seed=1)
     return jmodel, jparams, jcal, model, params, cal
 
@@ -79,8 +79,8 @@ def trained(tiny_trained):
     _, model = get_model("brecq_lm_100m", reduced=True)
     conv = lambda bs: [{"tokens": torch.tensor(np.asarray(b["tokens"]), dtype=torch.int64)}
                        for b in bs]  # noqa: E731
-    return jmodel, jparams, jcal, jeval, model, params_from_numpy(np_tree(jparams)), \
-        conv(jcal), conv(jeval)
+    tparams = params_from_numpy(np_tree(jparams), device="cpu")
+    return jmodel, jparams, jcal, jeval, model, tparams, conv(jcal), conv(jeval)
 
 
 def leaf(tree, path):

@@ -8,14 +8,16 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerance: 1e-4 * max|ref| + 1e-5 (f32 sums taken in another order);
-fakequant: hard bit for bit, soft within 1e-6 * max|ref|.
+Tolerance: 1e-4 * max|ref| + 1e-5 (f32 sums taken in another order; the
+tensor-core body's x = hi + lo split of TF32 adds below 2^-21 relative per
+product); fakequant: hard bit for bit, soft within 1e-6 * max|ref|.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.quantizer import pack_int
+from repro_torch.kernels import spec
 from repro_torch.kernels.kvattn import kernel as kv_kernel
 from repro_torch.kernels.kvattn import ops as kv_ops
 from repro_torch.kernels.kvattn.ref import kv_decode_ref
@@ -75,6 +77,65 @@ def test_qmatmul_kernel_matches_plain(cuda, bits, k, n, g, m):
     got = kernel.qmatmul(x, wp, s, bits=bits)
     assert kernel.LAUNCHES["qmatmul"] == before + 1
     check(got, ref.qmatmul_ref(x, wp, s, bits))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("k,n,g", SHAPES)
+@pytest.mark.parametrize("m", [16, 17, 32, 33, 64, 65])
+def test_qmatmul_tensor_core_tiles_match_plain(cuda, bits, k, n, g, m):
+    """Both tensor-core tiles (short up to 32 rows, wide above) and their
+    ragged M edges."""
+    x, wp, s = case(bits, k, n, g, m, cuda)
+    check(kernel.qmatmul(x, wp, s, bits=bits), ref.qmatmul_ref(x, wp, s, bits))
+
+
+# (bits, group): groups of 8, 16 and 128 k take the tensor cores; groups
+# that are not a whole number of k-units (8 k, 16 for W2) the CUDA cores
+@pytest.mark.parametrize("bits,group", [(4, 8), (4, 16), (2, 16), (8, 8), (4, 128),
+                                        (2, 128), (4, 4), (2, 8)])
+@pytest.mark.parametrize("m", [9, 33, 512])
+def test_qmatmul_groups_take_their_body(cuda, bits, group, m):
+    k, n = 256, 96
+    x, wp, s = case(bits, k, n, k // group, m, cuda)
+    body = spec.plan_qmatmul(m, k, n, k // group, bits).body
+    assert body == ("tc" if group % spec.qmm_tc_unit(bits) == 0 else "simt")
+    before = dict(kernel.BODY_LAUNCHES["qmatmul"])
+    check(kernel.qmatmul(x, wp, s, bits=bits), ref.qmatmul_ref(x, wp, s, bits))
+    assert kernel.BODY_LAUNCHES["qmatmul"][body] == before[body] + 1
+
+
+# K not a multiple of the 32-k stage (nor of 4: x read by 4-byte copies),
+# N of 1, 7 (no 4-byte pieces of a packed row) and 200 (ragged tile)
+@pytest.mark.parametrize("bits,k", [(4, 80), (2, 80), (8, 100), (8, 33), (4, 2050)])
+@pytest.mark.parametrize("n", [1, 7, 200])
+@pytest.mark.parametrize("m", [9, 32, 65])
+def test_qmatmul_ragged_k_and_n(cuda, bits, k, n, m):
+    x, wp, s = case(bits, k, n, 1, m, cuda)
+    check(kernel.qmatmul(x, wp, s, bits=bits), ref.qmatmul_ref(x, wp, s, bits))
+
+
+def test_both_tiled_bodies_launch(cuda):
+    kernel.reset_launches()
+    for group, m in ((128, 32), (128, 512), (4, 64)):  # short tile, wide tile, CUDA cores
+        x, wp, s = case(4, 256, 64, 256 // group, m, cuda)
+        kernel.qmatmul(x, wp, s, bits=4)
+    xg, wpg, sg = grouped_case(4, 4, 256, 64, 1, 64, cuda)
+    kernel.qmatmul_grouped(xg, wpg, sg, bits=4)
+    kernel.qmatmul_grouped(xg[:, :8].contiguous(), wpg, sg, bits=4)
+    torch.cuda.synchronize()
+    assert kernel.BODY_LAUNCHES == {"qmatmul": {"tc": 2, "simt": 1},
+                                    "qmatmul_grouped": {"tc": 1, "simt": 0, "gemv": 1}}
+    assert kernel.LAUNCHES == {"qgemv": 0, "qmatmul": 3, "qmatmul_grouped": 2}
+
+
+def test_qmatmul_is_deterministic(cuda):
+    """Same shape, same plan, same summation order: the same bits."""
+    for m in (32, 512):
+        x, wp, s = case(4, 2048, 768, 1, m, cuda)
+        a = kernel.qmatmul(x, wp, s, bits=4)
+        b = kernel.qmatmul(x, wp, s, bits=4)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
 
 
 def test_int8_odd_k(cuda):

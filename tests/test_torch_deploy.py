@@ -66,7 +66,7 @@ def test_quantize_tree_matches_jitted_jax(bits, group):
     p = np_params()
     want = jax.jit(jpack.quantize_tree, static_argnums=(1, 2))(
         jax.tree.map(jnp.asarray, p), bits, group)
-    got = pack.quantize_tree(params_from_numpy(p), bits, group)
+    got = pack.quantize_tree(params_from_numpy(p, device="cpu"), bits, group)
     assert_trees_identical(torch_flat(got), jax_flat(want))
 
 
@@ -75,7 +75,7 @@ def test_rtn_artifact_matches_jax(bits, group):
     p = np_params()
     cfg = get_config("brecq_lm_100m", reduced=True)
     j = j_rtn_artifact(jax.tree.map(jnp.asarray, p), bits, group, cfg=cfg)
-    t = rtn_artifact(params_from_numpy(p), bits, group, cfg=cfg)
+    t = rtn_artifact(params_from_numpy(p, device="cpu"), bits, group, cfg=cfg)
     assert_trees_identical(torch_flat(t.params), jax_flat(j.params))
     for key in ("bits_by_path", "w_group", "arch", "n_layers", "d_model", "vocab"):
         assert t.manifest[key] == j.manifest[key], key
@@ -92,7 +92,7 @@ def test_full_width_leaf_scales_match_jit(bits):
     tree = {"mlp": {"w_gate": {"w": w}}}
     want = jax.jit(jpack.quantize_tree, static_argnums=(1, 2))(
         jax.tree.map(jnp.asarray, tree), bits, None)
-    got = pack.quantize_tree(params_from_numpy(tree), bits, None)
+    got = pack.quantize_tree(params_from_numpy(tree, device="cpu"), bits, None)
     assert_trees_identical(torch_flat(got), jax_flat(want))
 
 
@@ -100,7 +100,7 @@ def test_checksums_and_digest_match_jax():
     p = np_params()
     j = jax.jit(jpack.quantize_tree, static_argnums=(1, 2))(
         jax.tree.map(jnp.asarray, p), 4, 64)
-    t = pack.quantize_tree(params_from_numpy(p), 4, 64)
+    t = pack.quantize_tree(params_from_numpy(p, device="cpu"), 4, 64)
     jc, tc = jpack.tree_checksums(j), pack.tree_checksums(t)
     assert tc == jc
     assert pack.content_digest(tc) == jpack.content_digest(jc)
@@ -120,7 +120,7 @@ def test_jax_saved_artifact_loads_verified_in_torch(tmp_path, bits):
 @pytest.mark.parametrize("bits", [4, 2])
 def test_torch_saved_artifact_loads_verified_in_jax(tmp_path, bits):
     p = np_params()
-    t = rtn_artifact(params_from_numpy(p), bits, 64)
+    t = rtn_artifact(params_from_numpy(p, device="cpu"), bits, 64)
     t.save(str(tmp_path))
     j = JArtifact.load(str(tmp_path), verify=True)
     assert_trees_identical(jax_flat(j.params), torch_flat(t.params))
@@ -128,7 +128,7 @@ def test_torch_saved_artifact_loads_verified_in_jax(tmp_path, bits):
 
 
 def test_flipped_bit_raises_corruption_naming_leaf(tmp_path):
-    t = rtn_artifact(params_from_numpy(np_params()), 4, None)
+    t = rtn_artifact(params_from_numpy(np_params(), device="cpu"), 4, None)
     t.save(str(tmp_path))
     leaf = next(k for k in t.manifest["checksums"] if k.endswith("wq/w"))
     faults.flip_leaf_bit(str(tmp_path), leaf, byte_index=7, bit=3)
@@ -141,7 +141,7 @@ def test_flipped_bit_raises_corruption_naming_leaf(tmp_path):
 
 
 def test_checksum_mismatch_names_leaf(tmp_path):
-    t = rtn_artifact(params_from_numpy(np_params()), 2, None)
+    t = rtn_artifact(params_from_numpy(np_params(), device="cpu"), 2, None)
     t.save(str(tmp_path))
     leaf = next(k for k in t.manifest["checksums"] if k.endswith("w_up/qscale"))
     faults.edit_manifest(str(tmp_path), lambda m: m["manifest"]["checksums"]
@@ -152,7 +152,7 @@ def test_checksum_mismatch_names_leaf(tmp_path):
 
 
 def test_missing_schema_raises(tmp_path):
-    t = rtn_artifact(params_from_numpy(np_params()), 4, None)
+    t = rtn_artifact(params_from_numpy(np_params(), device="cpu"), 4, None)
     t.save(str(tmp_path))
     faults.edit_manifest(str(tmp_path),
                          lambda m: m["manifest"].pop("schema_version"))
@@ -162,7 +162,7 @@ def test_missing_schema_raises(tmp_path):
 
 
 def test_hook_needs_serve_hook_for_act_scales():
-    t = rtn_artifact(params_from_numpy(np_params()), 4, None)
+    t = rtn_artifact(params_from_numpy(np_params(), device="cpu"), 4, None)
     from repro_torch.models.common import NO_QUANT
 
     assert t.hook() is NO_QUANT
@@ -175,10 +175,17 @@ def test_hook_needs_serve_hook_for_act_scales():
     assert hook.act_scales is t.act_scales
 
 
+def test_params_from_numpy_defaults_to_the_card(monkeypatch):
+    """No device means CUDA: without a card it raises, never falls back."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({"w": np.ones((2, 2), np.float32)})
+
+
 def test_interop_roundtrip_keeps_dtypes():
     tree = {"a": {"w": np.arange(6, dtype=np.int8).reshape(2, 3)},
             "b": np.ones(4, np.float32), "c": np.arange(3, dtype=np.int32)}
-    back = params_to_numpy(params_from_numpy(tree))
+    back = params_to_numpy(params_from_numpy(tree, device="cpu"))
     assert back["a"]["w"].dtype == np.int8 and back["b"].dtype == np.float32
     assert back["c"].dtype == np.int32
     np.testing.assert_array_equal(back["a"]["w"], tree["a"]["w"])

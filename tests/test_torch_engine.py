@@ -54,7 +54,7 @@ def weights():
     p = np_params(seed=3, w_scale=3.0)
     jcfg, jmodel = j_get_model("brecq_lm_100m", reduced=True)
     cfg, model = get_model("brecq_lm_100m", reduced=True)
-    jp, tp = jax.tree.map(jnp.asarray, p), params_from_numpy(p)
+    jp, tp = jax.tree.map(jnp.asarray, p), params_from_numpy(p, device="cpu")
     jart = j_rtn_artifact(jp, 4, None, cfg=jcfg)
     tart = rtn_artifact(tp, 4, None, cfg=cfg)
     return {"fp": ((jmodel, jp, J_NO_QUANT), (model, tp, NO_QUANT)),
@@ -134,7 +134,7 @@ def moe_w4():
         lambda path, a: a * 3 if path[-1].key == "w" else a,
         model_params(jmodel, seed=3))
     jart = j_rtn_artifact(jax.tree.map(jnp.asarray, p), 4, None, cfg=jcfg)
-    tart = rtn_artifact(params_from_numpy(p), 4, None, cfg=jcfg)
+    tart = rtn_artifact(params_from_numpy(p, device="cpu"), 4, None, cfg=jcfg)
     out = {}
     for impl in ("dense", "capacity"):
         _, jm = j_get_model("deepseek_moe_16b", reduced=True, moe_impl=impl)

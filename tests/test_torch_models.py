@@ -62,7 +62,7 @@ def close(got, want):
 def both(p, bits=None):
     """(jax params, torch params), RTN-packed at ``bits`` when given."""
     jp = jax.tree.map(jnp.asarray, p)
-    tp = params_from_numpy(p)
+    tp = params_from_numpy(p, device="cpu")
     if bits is not None:
         jp = jax.jit(jpack.quantize_tree, static_argnums=(1, 2))(jp, bits, None)
         tp = tpack.quantize_tree(tp, bits, None)

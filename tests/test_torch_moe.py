@@ -60,7 +60,7 @@ def layer_both(impl, cf, seed=0):
     jctx = JCtx(cfg=None, positions=jnp.zeros((2, 16), jnp.int32))
     tctx = Ctx(cfg=None, positions=torch.zeros((2, 16), dtype=torch.int32))
     return ((jctx, jax.tree.map(jnp.asarray, p), jspec, jnp.asarray(x)),
-            (tctx, params_from_numpy(p), tspec, torch.from_numpy(x)))
+            (tctx, params_from_numpy(p, device="cpu"), tspec, torch.from_numpy(x)))
 
 
 # cf 4.0: capacity holds every pick; 1.0: cap 8 of 16 tokens, picks dropped
@@ -201,7 +201,7 @@ def test_moe_artifact_round_trip(tmp_path, direction):
         dst = QuantizedArtifact.load(str(tmp_path), verify=True)
         jart, tart = src, dst
     else:
-        src = rtn_artifact(params_from_numpy(p), 4, None, cfg=cfg)
+        src = rtn_artifact(params_from_numpy(p, device="cpu"), 4, None, cfg=cfg)
         src.save(str(tmp_path))
         dst = JArtifact.load(str(tmp_path), verify=True)
         jart, tart = dst, src
@@ -218,7 +218,8 @@ def test_moe_decode_never_dequantizes_experts(monkeypatch, impl):
     goes through ``dequant_leaf``, and the plain grouped version keeps one
     expert's (K, N) at a time (never the (E, K, N) dense reference)."""
     cfg, jmodel, model = models("deepseek_moe_16b", impl)
-    art = rtn_artifact(params_from_numpy(np_params(jmodel, seed=7)), 4, None, cfg=cfg)
+    art = rtn_artifact(params_from_numpy(np_params(jmodel, seed=7), device="cpu"), 4,
+                       None, cfg=cfg)
     calls = []
     orig = pack.dequant_leaf
     monkeypatch.setattr(pack, "dequant_leaf",

@@ -104,7 +104,8 @@ def test_serve_quant_matches_jax(tmp_path, bits):
         [*SHAPE, "--quant", str(bits), "--save-artifact", str(jdir)],
         params=jax.tree.map(jnp.asarray, p)))
     out = serve.main([*SHAPE, "--quant", str(bits), "--save-artifact", str(tdir),
-                      "--device", "cpu"], params=params_from_numpy(p))
+                      "--device", "cpu"],
+                     params=params_from_numpy(p, device="cpu"))
     tgen = out["tokens"].numpy()
     np.testing.assert_array_equal(tgen, jgen)  # identical greedy tokens
     assert out["stats"]["qmm_tiers"]["decode"] > 0
@@ -125,7 +126,7 @@ def test_jax_exported_artifact_served_by_port(tmp_path):
     jgen = np.asarray(jserve.main([*SHAPE, "--artifact", str(tmp_path)],
                                   params=jax.tree.map(jnp.asarray, p)))
     out = serve.main([*SHAPE, "--artifact", str(tmp_path), "--device", "cpu"],
-                     params=params_from_numpy(p))
+                     params=params_from_numpy(p, device="cpu"))
     np.testing.assert_array_equal(out["tokens"].numpy(), jgen)
 
 
@@ -198,7 +199,7 @@ def test_serve_engine_matches_jax_engine(kv, overcommit):
     p = np_params(seed=2, w_scale=3.0)
     out = serve.main([*ENGINE, "--quant", "4", "--kv-dtype", kv, "--overcommit",
                       overcommit, "--seed", "5", "--device", "cpu"],
-                     params=params_from_numpy(p))
+                     params=params_from_numpy(p, device="cpu"))
     want, jm = jax_engine_tokens({"kv": kv, "overcommit": overcommit, "seed": 5}, p, 4)
     assert out["tokens"] == want
     assert set(out["states"].values()) == {"done"}
