@@ -12,20 +12,23 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              chunk, 64 and 512; ragged M and N), for 2/4/8-bit codes,
              per-channel and group-128 scales; time kernel, plain version,
              library yardstick (torch.matmul on the pre-dequantized
-             weight) and the bound at the slice shapes (for qmatmul's
-             tensor-core body: bytes, or two TF32 / three bf16 passes; the
-             f32 CUDA-core bound beside it)
+             weight) and the bound at the slice shapes (for the
+             tensor-core bodies: bytes, or two TF32 / three bf16 passes;
+             the f32 CUDA-core bound beside it)
   3. kv      hold ``kv_decode`` against its plain version (the engine's
              shape, GQA, MQA, ragged S, a window, kpos holes, a row with no
-             valid slot); time kernel, plain version, library yardstick
+             valid slot, head dim 120 with G 4 on the 8-byte body); time
+             kernel, plain version, library yardstick
              (scaled_dot_product_attention on pre-dequantized,
-             head-expanded K/V) and the bound at the engine's shape and at
-             a long cache
+             head-expanded K/V) and the bound at the engine's shape, at
+             a long cache and at head dim 120
   4. serve   run ``repro_torch.launch.serve.main`` at full width (batch 8,
              prompt 64, gen 32) for --quant 4 and --quant 2, save the
              artifact, serve it again through --artifact; check that both
-             kernels were launched, then replay the generated tokens through
-             the plain PyTorch path and compare the logits
+             kernels were launched, every decode launch on the tensor-core
+             decode body and every prefill launch on the tensor-core tile,
+             then replay the generated tokens through the plain PyTorch
+             path and compare the logits
   5. engine  run ``serve.main --quant 4 --engine`` at full width (8 slots,
              16 staggered streams, int8 paged KV) on random weights scaled
              so that the greedy tokens vary; check that all three kernels
@@ -61,7 +64,8 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              (W2 packed, plain path replays the tokens)
   8. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
-             64; the launches of each body on the main paths), the card's
+             64; the launches of each body on the main paths, for qgemv,
+             qmatmul, qmatmul_grouped and kv_decode), the card's
              name and power limit, and the final ``{"ok": true, "device":
              ...}`` line
 
@@ -88,10 +92,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32
-# outside the tensor cores (qgemv, qmatmul_grouped's decode body, kv_decode
-# and fakequant do f32 on CUDA cores), and dense TF32 and bf16 on the tensor
-# cores (qmatmul's and qmatmul_grouped's tensor-core body: the short tile
-# in two TF32 passes, the wide tile in three bf16 passes).
+# outside the tensor cores (kv_decode, fakequant and the CUDA-core bodies
+# kept for short scale groups), and dense TF32 and bf16 on the tensor cores
+# (the short tile in two TF32 passes; the wide tile and the decode body of
+# qgemv and qmatmul_grouped at M <= 8 in three bf16 passes).
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOP_S = 67e12
 PEAK_TF32_FLOP_S = 495e12
@@ -120,8 +124,12 @@ KV_CASES = [(8, 12, 12, 64, 96, None, False, False),
             (8, 12, 12, 64, 100, None, False, False),
             (8, 12, 12, 64, 256, 64, False, False),
             (8, 12, 12, 64, 96, None, True, False),
-            (8, 12, 12, 64, 96, None, False, True)]
-KV_TIMED = {"engine": (8, 12, 12, 64, 96), "long": (8, 12, 12, 64, 4096)}
+            (8, 12, 12, 64, 96, None, False, True),
+            # h2o-danube3-4b's heads: 32 over 8 kv heads of 120 (the 8-byte body)
+            (8, 32, 8, 120, 96, None, False, False),
+            (4, 32, 8, 120, 1000, 64, True, False)]
+KV_TIMED = {"engine": (8, 12, 12, 64, 96), "long": (8, 12, 12, 64, 4096),
+            "hd120": (8, 32, 8, 120, 96)}
 ENGINE_ARGS = ["--arch", "brecq_lm_100m", "--quant", "4", "--engine",
                "--batch", "8", "--prompt-len", "64", "--gen-len", "32",
                "--seed", "0", "--kv-dtype", "int8"]
@@ -276,7 +284,7 @@ def phase_parity(torch, kernel, ref, pack) -> tuple[dict, list]:
 
 def _time_case(torch, name, fn, plain, ref, x, wp, s, bits, group, m, k, n,
                err, rel) -> dict:
-    from repro_torch.kernels.spec import plan_qmatmul
+    from repro_torch.kernels.spec import plan_qgemv, plan_qmatmul
 
     copies = max(2, math.ceil(L2_FLUSH_BYTES / (wp.numel() + s.numel() * 4)))
     arg_sets = [(x, wp.clone(), s.clone()) for _ in range(copies)]
@@ -288,20 +296,17 @@ def _time_case(torch, name, fn, plain, ref, x, wp, s, bits, group, m, k, n,
     t_lib = graph_time_ms(torch, torch.matmul, lib_sets)
     del arg_sets, lib_sets
     plan = (plan_qmatmul(m, k, n, s.shape[0], bits) if name == "qmatmul"
-            else None)
-    body = plan.body if plan else "qgemv"
-    b_ms, b_by, b_f32 = bound(m, k, n, bits, s.shape[0], plan.arith if plan else "f32")
+            else plan_qgemv(k, n, s.shape[0], bits))
+    b_ms, b_by, b_f32 = bound(m, k, n, bits, s.shape[0], plan.arith)
     row = {"kernel": name, "bits": bits, "group": group, "M": m, "K": k, "N": n,
-           "body": body, "tile": plan.tile if plan else None,
-           "arith": plan.arith if plan else "f32",
-           "split": plan.split if plan else None,
+           "body": plan.body, "tile": plan.tile, "arith": plan.arith, "split": plan.split,
            "ms": t_kernel, "plain_ms": t_plain, "library_ms": t_lib,
            "bound_ms": b_ms, "bound_by": b_by, "bound_f32_ms": b_f32,
            "max_abs_err": err, "max_rel_err": rel}
     print(f"[time] {name:7s} W{bits} g={str(group):4s} M={m:3d} K={k:4d} N={n:4d}: "
           f"kernel {t_kernel*1e3:9.2f} us  plain {t_plain*1e3:9.2f} us  "
           f"library {t_lib*1e3:9.2f} us  bound {b_ms*1e3:7.2f} us ({b_by}; f32 "
-          f"{b_f32*1e3:.2f})  {body}{'/' + plan.tile + ' split ' + str(plan.split) if plan else ''}"
+          f"{b_f32*1e3:.2f})  {plan.body}/{plan.tile} split {plan.split}"
           f"  err {err:.2e} (rel {rel:.2e})")
     return row
 
@@ -341,10 +346,16 @@ def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
     shape and at a long cache."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.spec import kv_decode_body
+
     err_max = 0.0
     for (B, H, K, hd, S, window, holes, empty) in KV_CASES:
         args = kv_inputs(torch, B, H, K, hd, S, holes=holes, empty_row=empty)
+        before = dict(kv_kernel.BODY_LAUNCHES["kv_decode"])
         got = kv_kernel.kv_decode(*args, window=window)
+        body = kv_decode_body(hd)
+        if kv_kernel.BODY_LAUNCHES["kv_decode"][body] != before[body] + 1:
+            fail(f"kv_decode at hd={hd} did not take its body {body}")
         want = kv_ref.kv_decode_ref(*args, window=window)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
@@ -383,11 +394,12 @@ def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
         lib_err = float((lib_out - kv_ref.kv_decode_ref(*args)).abs().max())
         del lib_sets, k, v
         b_ms, b_by = kv_bound(B, H, K, hd, S)
-        timed[label] = {"B": B, "H": H, "K": K, "hd": hd, "S": S, "ms": t_kernel,
+        timed[label] = {"B": B, "H": H, "K": K, "hd": hd, "S": S,
+                        "body": kv_decode_body(hd), "ms": t_kernel,
                         "plain_ms": t_plain, "library_ms": t_lib,
                         "library_max_abs_err": lib_err, "bound_ms": b_ms,
                         "bound_by": b_by}
-        print(f"[time] kv_decode {label:6s} B={B} H={H} K={K} hd={hd} S={S:4d}: "
+        print(f"[time] kv_decode {label:6s} B={B} H={H} K={K} hd={hd:3d} S={S:4d}: "
               f"kernel {t_kernel*1e3:9.2f} us  plain {t_plain*1e3:9.2f} us  "
               f"library {t_lib*1e3:9.2f} us (err {lib_err:.1e})  bound "
               f"{b_ms*1e3:7.2f} us ({b_by})")
@@ -442,15 +454,19 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
                             "--no-compare-fp"])
         run = dict(kernel.LAUNCHES)
         bodies = dict(kernel.BODY_LAUNCHES["qmatmul"])
+        dec_bodies = dict(kernel.BODY_LAUNCHES["qgemv"])
         for k in launches:
             launches[k] += run[k]
         tiers = first["stats"]["qmm_tiers"]
-        print(f"[serve W{bits}] kernel launches {run}; qmatmul bodies {bodies}; qmm "
-              f"tiers {tiers}")
+        print(f"[serve W{bits}] kernel launches {run}; qmatmul bodies {bodies}; qgemv "
+              f"bodies {dec_bodies}; qmm tiers {tiers}")
         if run["qgemv"] == 0 or run["qmatmul"] == 0:
             fail(f"W{bits} serve did not launch both kernels: {run}")
         if bodies["tc"] != run["qmatmul"]:
             fail(f"W{bits} prefill did not all take the tensor cores: {bodies}")
+        if dec_bodies["gemv_tc"] != run["qgemv"]:
+            fail(f"W{bits} decode did not all take the tensor-core decode body: "
+                 f"{dec_bodies}")
         if tiers["decode"] == 0 or tiers["prefill"] == 0:
             fail(f"W{bits} serve did not dispatch both tiers: {tiers}")
         if not torch.equal(first["tokens"], again["tokens"]):
@@ -473,6 +489,7 @@ def phase_serve(torch, kernel, ops, serve, workdir: Path) -> tuple[dict, list]:
               f"{first['fp_stats']['prefill_tok_s']:.1f}, decode "
               f"{first['fp_stats']['tok_s']:.1f})")
         results.append({"bits": bits, "launches": run, "bodies": bodies,
+                        "qgemv_bodies": dec_bodies,
                         "qmm_tiers": tiers,
                         "logits_max_abs_err": err, "token_agreement": agree,
                         "artifact_bytes": first["artifact_bytes"],
@@ -672,11 +689,17 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
     out, launches, bodies = _counted(kernels, lambda: serve.main(main_args, params=params))
     m = out["metrics"]
     print(f"[engine] main path: kernel launches {launches}; qmatmul bodies "
-          f"{bodies['qmatmul']}")
+          f"{bodies['qmatmul']}; qgemv bodies {bodies['qgemv']}; kv_decode bodies "
+          f"{bodies['kv_decode']}")
     if min(launches[k] for k in ("qgemv", "qmatmul", "kv_decode")) == 0:
         fail(f"the engine's main path did not launch every kernel: {launches}")
     if bodies["qmatmul"]["tc"] != launches["qmatmul"]:
         fail(f"the engine's prefill chunks did not all take the tensor cores: {bodies}")
+    if bodies["qgemv"]["gemv_tc"] != launches["qgemv"]:
+        fail(f"the engine's decode steps did not all take the tensor-core decode "
+             f"body: {bodies['qgemv']}")
+    if bodies["kv_decode"]["v16"] != launches["kv_decode"]:
+        fail(f"the engine's kv_decode (hd 64) left the 16-byte body: {bodies['kv_decode']}")
     if set(out["states"].values()) != {"done"}:
         fail(f"engine requests did not all finish: {out['states']}")
     distinct = sorted(len(set(t)) for t in out["tokens"].values())
@@ -918,9 +941,9 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
     print(f"[moe serve] kernel launches {launches}; qmm tiers {st['qmm_tiers']}; "
           f"qmatmul_grouped bodies {bodies['qmatmul_grouped']}")
     gb = bodies["qmatmul_grouped"]
-    if gb["tc"] != 3 * n_moe * 2 or gb["gemv"] != 3 * n_moe * (forwards - 2):
+    if gb["tc"] != 3 * n_moe * 2 or gb["gemv_tc"] != 3 * n_moe * (forwards - 2):
         fail(f"the MoE prefills (64 rows an expert) did not take the tensor cores "
-             f"and the decode steps the decode body: {gb}")
+             f"and the decode steps the tensor-core decode body: {gb}")
     if launches["qmatmul_grouped"] != 3 * n_moe * forwards:
         fail(f"qmatmul_grouped launched {launches['qmatmul_grouped']} times, not "
              f"3 x {n_moe} MoE layers x {forwards} forwards")
@@ -963,6 +986,8 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
           f"tokens per stream {edistinct}")
     if min(elaunch.values()) == 0:
         fail(f"the MoE engine did not launch every kernel: {elaunch}")
+    if ebodies["qmatmul_grouped"]["gemv"] or ebodies["qgemv"]["gemv"]:
+        fail(f"the MoE engine left the tensor-core decode body: {ebodies}")
     four = streams[:4]
     stag = _engine(serve, model, art, args, four, "cuda")
     seq = _engine(serve, model, art, args, four, "cuda", sequential=True)
@@ -1170,6 +1195,9 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> di
     served = dict(qm_kernel.LAUNCHES)
     if served["qgemv"] == 0 or served["qmatmul"] == 0:
         fail(f"serving the calibrated artifact missed a kernel: {served}")
+    if qm_kernel.BODY_LAUNCHES["qgemv"]["gemv_tc"] != served["qgemv"]:
+        fail(f"serving the calibrated artifact left the tensor-core decode body: "
+             f"{qm_kernel.BODY_LAUNCHES['qgemv']}")
     err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen_toks,
                                        "calib W2")
     print(f"[calib serve] kernel launches {served}; logits kernel vs plain: max abs "
@@ -1212,7 +1240,10 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq) -> dict
     M=512 as added fields), summed over the layer's shapes; qmatmul_grouped
     likewise per MoE layer at M 8 and, as added fields, M 64. For
     kv_decode: one call at the engine's decode shape. ``body_launches``:
-    the main path's launches of each body."""
+    the main path's launches of each body. ``bound_ms`` follows the
+    arithmetic of the body that ran (bytes against three bf16 passes for
+    the decode body, two TF32 or three bf16 passes for the tiles);
+    ``bound_f32_ms`` is the f32 CUDA-core bound earlier rows used."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
             "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
@@ -1228,12 +1259,12 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq) -> dict
             "bound_f32_ms": tot["bound_f32_ms"],
             "shapes": f"one layer: 4x768x768, 2x768x2048, 1x2048x768; W4 "
                       f"per-channel; M={m}"}
+        entry["body"] = tot["bodies"]
+        entry["body_launches"] = bodies[name]
         if name == "qmatmul":
             big = _layer(rows, SLICE_SHAPES, kernel=name, bits=4, group=None, M=512)
             entry.update({f"m512_{k}": big[k] for k in (*TIMED_KEYS, "bound_by")})
-            entry["body"] = tot["bodies"]
             entry["m512_body"] = big["bodies"]
-            entry["body_launches"] = bodies["qmatmul"]
         out.append(entry)
     t = kv_timed["engine"]
     out.append({
@@ -1243,6 +1274,7 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq) -> dict
         "launches": launches["kv_decode"], "max_abs_err": kv_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "body": t["body"], "body_launches": bodies["kv_decode"],
         "shapes": f"B={t['B']} H={t['H']} K={t['K']} hd={t['hd']} S={t['S']}"})
     dec = _layer(moe["rows"], MOE_SHAPES, M=8)
     pre = _layer(moe["rows"], MOE_SHAPES, M=64)

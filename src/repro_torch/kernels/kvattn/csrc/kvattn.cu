@@ -35,11 +35,15 @@
 // slots. Reductions use warp shuffles in a fixed pattern and no atomics:
 // the result is deterministic.
 //
-// Loads: a thread issues up to kPre of its 16-byte K/V load units (the
-// spec asks hd % 16 == 0 and 16-byte aligned codes), plus its slot's kpos
-// and scales, before it stores any of them, so a tile costs about one
-// device-memory round trip for hd <= 128. A register prefetch of the next tile during
-// the current tile's math was measured slower and left out. Splitting S
+// Loads: a thread issues up to kPre of its K/V load units of VB bytes,
+// plus its slot's kpos and scales, before it stores any of them, so a tile
+// costs about one device-memory round trip for hd <= 128. Two bodies, by
+// the head dim (spec.plan_kv_decode): 16-byte units for hd % 16 == 0 (the
+// codes 16-byte aligned), 8-byte units for the other multiples of 8 (hd
+// 120 of h2o-danube3-4b; 8-byte aligned), with twice the units in flight
+// per batch so the bytes in flight stay the same. A register prefetch of
+// the next tile during the current tile's math was measured slower and
+// left out. Splitting S
 // across blocks (flash-decoding), cp.async/TMA staging and tensor cores
 // are later work. What bounds it today is parallelism, not bytes: the
 // engine's shape gives B * K = 96 blocks for 132 SMs, one block of 8 warps
@@ -50,6 +54,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int kThreads = 256;  // one cache slot of a tile per thread
@@ -58,7 +64,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 16;      // spec.KV_G_MAX
 constexpr int kMaxHd = 256;    // spec.KV_HD_MAX
 constexpr int kMaxUnits = kMaxG * kMaxHd / 4 / kThreads;  // output words per thread
-constexpr int kPre = 8;        // K (and V) load units a thread issues before storing
+// K (and V) load units of VB bytes a thread issues before storing: 128
+// bytes of each
+template <int VB>
+constexpr int pre_units() { return 128 / VB; }
 constexpr float kMask = -1e30f;  // the TPU kernel's MASK
 
 __device__ __forceinline__ void put(uint32_t* dst, uint4 x) {
@@ -68,12 +77,23 @@ __device__ __forceinline__ void put(uint32_t* dst, uint4 x) {
   dst[3] = x.w;
 }
 
+__device__ __forceinline__ void put(uint32_t* dst, uint2 x) {
+  dst[0] = x.x;
+  dst[1] = x.y;
+}
+
+// The load unit of VB bytes.
+template <int VB>
+using unit_t = typename std::conditional<VB == 16, uint4, uint2>::type;
+
 // A batch of one tile's loads for one thread, held in registers until
-// stored: 16-byte load units j0 .. j0 + kPre - 1 of the tile's K and V
+// stored: load units j0 .. j0 + kPre - 1 of VB bytes of the tile's K and V
 // codes (unit j covers item j * kThreads + tid of the tile's n * urow
 // units), and with the first batch the thread's own slot's kpos and scales.
+template <int VB>
 struct Stage {
-  uint4 k[kPre], v[kPre];
+  static constexpr int kPre = pre_units<VB>();
+  unit_t<VB> k[kPre], v[kPre];
   int kp;
   float ks, vs;
 
@@ -86,9 +106,9 @@ struct Stage {
       const int i = (j0 + j) * kThreads + tid;
       if (i < n * urow) {
         const int r = i / urow, u = i - r * urow;
-        const size_t off = static_cast<size_t>(s0 + r) * slot_bytes + u * sizeof(uint4);
-        k[j] = __ldg(reinterpret_cast<const uint4*>(kb + off));
-        v[j] = __ldg(reinterpret_cast<const uint4*>(vb + off));
+        const size_t off = static_cast<size_t>(s0 + r) * slot_bytes + u * VB;
+        k[j] = __ldg(reinterpret_cast<const unit_t<VB>*>(kb + off));
+        v[j] = __ldg(reinterpret_cast<const unit_t<VB>*>(vb + off));
       }
     }
     if (j0 == 0 && tid < n) {
@@ -101,7 +121,7 @@ struct Stage {
 
   __device__ __forceinline__ void store(uint32_t* k_s, uint32_t* v_s, int W, int KW, int n,
                                         int urow, int j0, int tid) const {
-    constexpr int kWords = sizeof(uint4) / 4;
+    constexpr int kWords = VB / 4;
 #pragma unroll
     for (int j = 0; j < kPre; ++j) {
       const int i = (j0 + j) * kThreads + tid;
@@ -150,6 +170,7 @@ size_t smem_bytes(int G, int hd) {
        + sizeof(uint32_t) * static_cast<size_t>(kTile) * (2 * W + 1);
 }
 
+template <int VB>
 __global__ void __launch_bounds__(kThreads)
 kv_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
                  const int8_t* __restrict__ v8, const float* __restrict__ ks,
@@ -198,13 +219,13 @@ kv_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
 #pragma unroll
   for (int i = 0; i < kMaxUnits; ++i) acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
 
-  const int urow = hd / static_cast<int>(sizeof(uint4));  // load units per K/V row
+  const int urow = hd / VB;  // load units per K/V row
 
   for (int s0 = 0; s0 < S; s0 += kTile) {
     const int n = min(kTile, S - s0);  // real slots of this tile
     __syncthreads();  // the previous tile's readers are done
-    Stage st;
-    for (int j0 = 0; j0 * kThreads < n * urow; j0 += kPre) {
+    Stage<VB> st;
+    for (int j0 = 0; j0 * kThreads < n * urow; j0 += Stage<VB>::kPre) {
       st.load(kb, vb, ksb, vsb, kpb, K, slot_bytes, s0, n, urow, j0, tid);
       st.store(k_s, v_s, W, KW, n, urow, j0, tid);
     }
@@ -313,18 +334,18 @@ kv_decode_kernel(const float* __restrict__ q, const int8_t* __restrict__ k8,
 extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError(): 0 when the launch
-// was accepted. The K/V code pointers must be 16-byte aligned (16-byte
-// loads; hd % 16 == 0).
+// was accepted. vb: the body's load unit, 16 bytes (hd % 16 == 0, codes
+// 16-byte aligned) or 8 (hd % 8 == 0, codes 8-byte aligned).
 int kv_decode_launch(const void* q, const void* k8, const void* v8, const void* ks,
                      const void* vs, const void* kpos, const void* cur, void* out,
-                     int B, int H, int K, int S, int hd, int window, void* stream) {
+                     int B, int H, int K, int S, int hd, int window, int vb, void* stream) {
   if (B < 1 || K < 1 || S < 1 || H % K != 0 || H / K > kMaxG || hd < 16 || hd > kMaxHd ||
-      hd % 16 != 0 || reinterpret_cast<uintptr_t>(k8) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(v8) % 16 != 0) {
+      (vb != 16 && vb != 8) || hd % vb != 0 || reinterpret_cast<uintptr_t>(k8) % vb != 0 ||
+      reinterpret_cast<uintptr_t>(v8) % vb != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t bytes = smem_bytes(H / K, hd);
-  auto kern = kv_decode_kernel;
+  auto kern = vb == 16 ? &kv_decode_kernel<16> : &kv_decode_kernel<8>;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));

@@ -17,22 +17,42 @@
 //   out    (M, N)            f32
 //
 // Every kernel masks ragged M and N itself, so no padding is needed on
-// the caller's side. qgemv and qmatmul_grouped at M <= 8 are f32 FMA on
-// CUDA cores; qmatmul (every M) and qmatmul_grouped at M > 8 run on the
-// tensor cores (below), with a CUDA-core body kept for scale groups too
-// short for them.
+// the caller's side. Every body runs on the tensor cores, with CUDA-core
+// bodies kept for scale groups too short for them.
 //
-// qgemv does 2*M*K*N f32 operations on K*N*bits/8 weight bytes (M <= 8):
-// at M = 8 its f32 operations outweigh the bytes on paper, at M = 1 the
-// bytes do; either way its real limit at the serving shapes is latency and
-// parallelism, with under 1 MB per call. A block owns 64 columns and one
-// eighth of the packed rows; the 8 blocks of a thread-block cluster cover
-// all of K and are summed in rank order through distributed shared memory,
-// so no partial sum is carried across blocks through global memory and the
-// result is deterministic. A thread reads 4 packed bytes (4 columns) per row
-// with one 32-bit load and the row's activations with one vector load per
-// batch row, unpacks in registers and keeps M x 4 partial sums; each group's
-// scale multiplies its partial sum.
+// qgemv, and qmatmul_grouped at M <= 8: the decode body ("gemv_tc").
+//   What bounds it. 2*M*K*N operations on K*N*bits/8 code bytes, M <= 8:
+//   by bytes on the tensor cores. qgemv's serving matrices hold under 1 MB
+//   of codes, so a call is latency: launch, one round trip to device
+//   memory, the math, a meeting of warps. The stacked experts (92 MB of W4
+//   codes a call at deepseek-moe-16b's widths) stream: the card's 3.35 TB/s
+//   needs ~25 KB of code bytes in flight per SM.
+//   Arithmetic. out^T = W^T x^T with mma.sync.m16n8k16 bf16: A is 16
+//   weight columns x 16 k of codes, unpacked from the packed bytes straight
+//   into A fragments (exact in bf16); B is x^T, the batch rows its 8
+//   columns, so M <= 8 wastes no MMA row; x in three bf16 parts (the wide
+//   tile's split, < 2^-21 relative a product). Each scale group's partial
+//   sum is scaled, never the codes.
+//   Structure. A block owns a strip of columns (16 for qgemv, so that 768
+//   columns make 48 blocks; 128 for the experts, whose 64 x 11..16 strips
+//   fill the card) and all of K, split across its warps in contiguous
+//   shares of 16-k units. Each warp streams its units (the packed rows of
+//   the strip and x's 8 x 16 values) through its own ring of shared-memory
+//   slots by 16-byte cp.async copies, issued before its first MMA (9
+//   slots: every unit of qgemv's warps at K <= 2048; 4 for the experts, so
+//   that 5 blocks share an SM with ~60 KB of codes in flight), and syncs
+//   only with itself in the mainloop. The warps meet once, in shared
+//   memory, summed in warp order: no cluster, no float atomics, the same
+//   bits for a shape, and a row's result does not depend on the other rows
+//   of the call (the plan depends on K, N, G and bits only, and MMA
+//   columns do not mix). Scale groups that are not a whole number of 16 k
+//   (W4 group 8, W2 group 8) take the CUDA-core decode body ("gemv")
+//   below.
+//
+// The CUDA-core decode body ("gemv"), of qgemv and qmatmul_grouped alike:
+// one 256-thread block per (64 columns, expert) over all of K, fed by a
+// 4-deep cp.async ring, each code scaled as it is decoded, so any scale
+// group works.
 //
 // qmatmul, and qmatmul_grouped at M > 8: the tensor-core body ("tc").
 //   Arithmetic. Tensor-core MMAs with f32 accumulators, on codes that are
@@ -115,14 +135,9 @@
 // each expert takes (8 at decode, 64 at deepseek-moe-16b's fixed-batch
 // prefill). Each expert's operands are found by size_t offsets from the
 // expert index on the grid, and the stacked codes are read directly, so no
-// (E, K, N) dequantized copy exists. M <= 8 ("gemv"): each 92 MB weight
-// (W4) streams from device memory once per call, so the kernel needs ~25
-// KB in flight per SM to keep that stream going: one 256-thread block per
-// (64 columns, expert) over all of K (E x N/64 = 1,408 blocks fill the card
-// without a split of K); K goes in stages through a 4-deep cp.async ring in
-// shared memory, 3 stages ahead of the math, and each thread keeps 8 x 4
-// sums. Larger M takes the tensor-core body above with the expert on
-// grid.z. All bodies are deterministic.
+// (E, K, N) dequantized copy exists. M <= 8 takes the decode body above,
+// larger M the tensor-core tiles with the expert on grid.z. All bodies are
+// deterministic.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
@@ -135,13 +150,12 @@ namespace {
 
 constexpr int kMaxM = 8;  // qgemv rows (spec.QGEMV_M_MAX)
 
-// qgemv: 16 column quads (64 columns) x 16 packed-row slices per block, and
-// a cluster of kGemvSplit blocks along grid.y splitting the packed rows.
+// The CUDA-core decode body: 16 column quads (64 columns) x 16 packed-row
+// slices per block.
 constexpr int kGemvTX = 16;
 constexpr int kGemvTY = 16;
 constexpr int kGemvThreads = kGemvTX * kGemvTY;
 constexpr int kGemvCols = kGemvTX * 4;
-constexpr int kGemvSplit = 8;
 
 // The CUDA-core body of qmatmul / qmatmul_grouped: 256 threads as 16 x 16,
 // 64 x 64 outputs (4 x 4 each), k-step 32.
@@ -181,32 +195,6 @@ __device__ __forceinline__ uint32_t load4(const uint8_t* __restrict__ row,
   return v;
 }
 
-// The PER activations x[m, r*PER .. r*PER+PER-1] of packed row r, for every
-// row m < M (zero above M). One vector load per row: x is 16-byte aligned
-// and K = rows * PER.
-template <int PER>
-__device__ __forceinline__ void load_x(const float* __restrict__ x, int K, int M,
-                                       int r, float (&xv)[kMaxM][PER]) {
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m) {
-    const float* p = x + static_cast<size_t>(m) * K + static_cast<size_t>(r) * PER;
-    if (m < M) {
-      if constexpr (PER == 4) {
-        const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-        xv[m][0] = v.x; xv[m][1] = v.y; xv[m][2] = v.z; xv[m][3] = v.w;
-      } else if constexpr (PER == 2) {
-        const float2 v = __ldg(reinterpret_cast<const float2*>(p));
-        xv[m][0] = v.x; xv[m][1] = v.y;
-      } else {
-        xv[m][0] = __ldg(p);
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < PER; ++i) xv[m][i] = 0.f;
-    }
-  }
-}
-
 // Hand every row slice's accumulators to shared memory (red[ty][m][col]).
 __device__ __forceinline__ void gemv_stage(float (&red)[kGemvTY][kMaxM][kGemvCols],
                                            const float (&acc)[kMaxM][4], int tx, int ty) {
@@ -226,104 +214,6 @@ __device__ __forceinline__ float gemv_slice_sum(const float (&red)[kGemvTY][kMax
 #pragma unroll
   for (int t = 0; t < kGemvTY; ++t) sum += red[t][m][col];
   return sum;
-}
-
-// Decode GEMV. Block (bx, rank) owns columns [64 bx, 64 bx + 64) and packed
-// rows [rank * chunk, (rank + 1) * chunk) of the weight; its 16 row slices
-// each walk every 16th row. Per scale group the partial sums are scaled and
-// added to the accumulators (once at the end when G == 1); the 16 slices are
-// summed through shared memory, then the cluster's 8 blocks are summed in
-// rank order by block 0 through distributed shared memory (deterministic).
-template <int BITS>
-__global__ void __cluster_dims__(1, kGemvSplit, 1) __launch_bounds__(kGemvThreads)
-qgemv_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
-             const float* __restrict__ s, float* __restrict__ out,
-             int M, int K, int N, int G, int vec) {
-  constexpr int kPer = 8 / BITS;
-  __shared__ float red[kGemvTY][kMaxM][kGemvCols];
-  __shared__ float part_out[kMaxM * kGemvCols];
-
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int n0 = blockIdx.x * kGemvCols + tx * 4;
-  const int rows = K / kPer;
-  const int rows_per_group = rows / G;
-  const int chunk = (rows + kGemvSplit - 1) / kGemvSplit;
-  const int r_lo = rank * chunk;
-  const int r_hi = min(rows, r_lo + chunk);
-
-  float acc[kMaxM][4];
-#pragma unroll
-  for (int m = 0; m < kMaxM; ++m)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[m][c] = 0.f;
-
-  if (n0 < N && r_lo < r_hi) {
-    const int g_last = (r_hi - 1) / rows_per_group;
-    for (int g = r_lo / rows_per_group; g <= g_last; ++g) {
-      const int gr_lo = max(r_lo, g * rows_per_group);
-      const int gr_hi = min(r_hi, (g + 1) * rows_per_group);
-      float part[kMaxM][4];
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) part[m][c] = 0.f;
-
-#pragma unroll 2
-      for (int r = gr_lo + ty; r < gr_hi; r += kGemvTY) {
-        const uint32_t w4 = load4(wp + static_cast<size_t>(r) * N, n0, N, vec != 0);
-        float xv[kMaxM][kPer];
-        load_x<kPer>(x, K, M, r, xv);
-#pragma unroll
-        for (int i = 0; i < kPer; ++i) {
-          float cv[4];
-#pragma unroll
-          for (int c = 0; c < 4; ++c) cv[c] = decode<BITS>(w4 >> (8 * c), i);
-#pragma unroll
-          for (int m = 0; m < kMaxM; ++m) {
-            if (m < M) {
-#pragma unroll
-              for (int c = 0; c < 4; ++c) part[m][c] = fmaf(xv[m][i], cv[c], part[m][c]);
-            }
-          }
-        }
-      }
-      // the group's scale multiplies its partial sum, never the codes
-      float sc[4];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        sc[c] = (n0 + c < N) ? __ldg(s + static_cast<size_t>(g) * N + n0 + c) : 0.f;
-      }
-#pragma unroll
-      for (int m = 0; m < kMaxM; ++m)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[m][c] = fmaf(part[m][c], sc[c], acc[m][c]);
-    }
-  }
-  gemv_stage(red, acc, tx, ty);
-
-  const int tid = ty * kGemvTX + tx;
-  for (int o = tid; o < kMaxM * kGemvCols; o += kGemvThreads) {
-    part_out[o] = gemv_slice_sum(red, o);
-  }
-  cluster.sync();  // every block's part_out is written and visible
-  if (rank == 0) {
-    for (int o = tid; o < kMaxM * kGemvCols; o += kGemvThreads) {
-      const int m = o / kGemvCols;
-      const int n = blockIdx.x * kGemvCols + o % kGemvCols;
-      if (m < M && n < N) {
-        float sum = 0.f;
-#pragma unroll
-        for (int b = 0; b < kGemvSplit; ++b) {
-          sum += cluster.map_shared_rank(part_out, b)[o];
-        }
-        out[static_cast<size_t>(m) * N + n] = sum;
-      }
-    }
-  }
-  cluster.sync();  // no block leaves while block 0 still reads its shared memory
 }
 
 // One 64 x 64 output tile over k in [k_begin, k_end), in k-steps of 32: the x
@@ -518,10 +408,10 @@ qmatmul_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
   cluster.sync();  // no block leaves while rank 0 still reads its shared memory
 }
 
-// Grouped expert GEMM, decode-shaped (M <= 8 rows per expert). One block per
-// (64 columns, expert) walks all of K: E x N/64 blocks (1,408 at
-// deepseek-moe-16b's widths) fill the card without a split of K. The weight
-// streams from device memory once, so the kernel needs many bytes in flight:
+// The CUDA-core decode body (M <= 8 rows per expert; qgemv is E = 1), for
+// scale groups that are not a whole number of 16 k. One block per (64
+// columns, expert) walks all of K. The weight streams from device memory
+// once, so the kernel needs many bytes in flight:
 // K goes in stages of kGgKS values through a kGgStages-deep cp.async ring in
 // shared memory (the stage's packed rows x 64 columns, and x's kGgKS x 8
 // values stored k-major), loads issued kGgStages - 1 stages ahead of the
@@ -1384,6 +1274,429 @@ qmm_wide_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
                                                          rank);
 }
 
+// -- the decode body (M <= 8): mma.sync with the operands swapped -----------
+//
+// out^T (N x M) = W^T (N x K) x^T (K x M), one mma.sync.m16n8k16 bf16 per
+// 16 weight columns x 16 k: A is 16 columns of codes (exact in bf16), B is
+// x^T with the batch rows as its 8 columns, so M <= 8 wastes no row; x in
+// three bf16 parts (the wide tile's split). A thread (g, t) reads a piece of
+// P bytes of a packed row at column P*g and so holds P columns; MMA tile j
+// of its warp gives row g to column P*g + 2j and row g + 8 to column P*g +
+// 2j + 1 (byte 2j and 2j + 1 of the piece), so the warp's 8P columns are P/2
+// tiles. A thread's k of a tile are logical k 2t, 2t + 1 (registers a0, a1)
+// and 2t + 8, 2t + 9 (a2, a3); they map to physical k of the 16-k unit:
+//   W4  2t, 2t + 1 / 2t + 8, 2t + 9   (both nibbles of packed rows t, t + 4)
+//   W2  4t, 4t + 1 / 4t + 2, 4t + 3   (fields 0, 1 / 2, 3 of packed row t)
+//   W8  t, t + 4 / t + 8, t + 12      (packed rows t, t + 4, t + 8, t + 12)
+// and B takes x at the same physical k. Each warp walks a contiguous share
+// of K's units through its own ring of R slots (a unit's codes and x,
+// 16-byte cp.async copies issued R - 1 units ahead), so warps meet only at
+// the end, in shared memory, summed in warp order. A code pair costs three
+// instructions: a byte_perm spreading the byte and its copy shifted by one
+// field to bits 0 and 16, one lop3 masking the fields and setting bf16's
+// exponent of 128, and one bf16x2 subtraction of 128 + offset. Per-channel
+// scales multiply the finished sums; scale groups (a whole number of 16-k
+// units) fold into totals when a warp's next unit lies in another group.
+
+constexpr int kDecUnit = 16;  // k of one MMA
+template <int BITS>
+__host__ __device__ constexpr int dec_rows() { return 2 * BITS; }  // packed rows a unit
+// x row stride (floats) in a slot: a warp's reads of x (float2 at k 2t and
+// 2t + 8 for W4, float4 at 4t for W2, floats at t + 4i for W8, of rows g)
+// hit every bank once
+template <int BITS>
+__host__ __device__ constexpr int dec_xstride() { return BITS == 4 ? 24 : (BITS == 2 ? 48 : 20); }
+// code row stride (bytes) in a slot: pieces of 16 bytes (P 16) at rows t
+// and t + 4 hit every bank once; pieces of 2 bytes (P 2) need no padding
+template <int P>
+__host__ __device__ constexpr int dec_wstride() { return P == 16 ? 160 : 16; }
+template <int BITS, int P>
+__host__ __device__ constexpr int dec_slot_bytes() {
+  return dec_rows<BITS>() * dec_wstride<P>() + kMaxM * dec_xstride<BITS>() * 4;
+}
+// the warps' rings, or (after the mainloop, in the same memory) their
+// partial tiles (NW x 8 rows x (8P + 4) floats); spec.qmm_dec_smem mirrors it
+template <int BITS, int P, int NW, int R>
+__host__ __device__ constexpr int dec_smem_bytes() {
+  constexpr int ring = NW * R * dec_slot_bytes<BITS, P>();
+  constexpr int red = NW * kMaxM * (8 * P + 4) * 4;
+  return ring > red ? ring : red;
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate.
+// Fragments of thread (g, t): a0 (g, k 2t..), a1 (g + 8, 2t..), a2 (g, 2t +
+// 8..), a3 (g + 8, 2t + 8..); b0 (k 2t.., n g), b1 (k 2t + 8.., n g);
+// d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A lane's share of the copies of every unit into a warp's slot: its
+// 16-byte pieces of the unit's packed rows of the block's 8P columns (rows
+// lane / (P/2) + i * 32 / (P/2), column 16 * (lane % (P/2))) and 4 floats
+// of x (row lane / 4, k 4 * (lane % 4) of the unit's 16), by cp.async with
+// zero fill past M, N and K; the lane-fixed parts are worked out once.
+template <int BITS, int P>
+struct DecLoader {
+  static constexpr int kRows = dec_rows<BITS>();
+  static constexpr int kPieces = P / 2;  // 16-byte pieces of a packed row
+  static constexpr int kStep = 32 / kPieces;
+  static constexpr int kCopies = (kRows * kPieces + 31) / 32;
+  const uint8_t* wsrc;  // this lane's first piece of unit 0
+  const float* xsrc;    // this lane's x of unit 0
+  int r0, col, ncol, rows, K, N, wvec;
+  bool x_in;
+
+  __device__ __forceinline__ DecLoader(const float* x, const uint8_t* wp, int M, int K_, int N_,
+                                       int n0, int wvec_, int lane)
+      : K(K_), N(N_), wvec(wvec_) {
+    r0 = lane / kPieces;
+    col = 16 * (lane % kPieces);
+    ncol = n0 + col;
+    rows = K * BITS / 8;
+    wsrc = wp + static_cast<size_t>(r0) * N + ncol;
+    x_in = (lane >> 2) < M;
+    xsrc = x + static_cast<size_t>(lane >> 2) * K + 4 * (lane & 3);
+  }
+
+  __device__ __forceinline__ void load(uint8_t* slot, int u, int lane) const {
+#pragma unroll
+    for (int i = 0; i < kCopies; ++i) {
+      const int r = r0 + kStep * i;
+      if (r >= kRows) break;  // P 2: the lanes past the unit's rows
+      const int pr = u * kRows + r;
+      const uint8_t* src = wsrc + static_cast<size_t>(u * kRows + kStep * i) * N;
+      uint8_t* dst = slot + r * dec_wstride<P>() + col;
+      if (wvec == 16) {  // N % 16 == 0: a piece lies wholly inside N or outside
+        const bool in = ncol < N && pr < rows;
+        __pipeline_memcpy_async(dst, in ? src : wsrc, 16, in ? 0 : 16);
+      } else if (wvec == 4) {
+#pragma unroll
+        for (int b = 0; b < 16; b += 4) {
+          const bool in = ncol + b < N && pr < rows;
+          __pipeline_memcpy_async(dst + b, in ? src + b : wsrc, 4, in ? 0 : 4);
+        }
+      } else {
+#pragma unroll
+        for (int b = 0; b < 16; ++b) dst[b] = (ncol + b < N && pr < rows) ? __ldg(src + b) : 0;
+      }
+    }
+    float* dst = reinterpret_cast<float*>(slot + kRows * dec_wstride<P>()) +
+                 (lane >> 2) * dec_xstride<BITS>() + 4 * (lane & 3);
+    const int k = u * kDecUnit + 4 * (lane & 3);
+    const float* src = xsrc + u * kDecUnit;
+    if ((K & 3) == 0) {  // x rows start 16-byte aligned (the wrapper aligns x)
+      const bool in = x_in && k < K;
+      __pipeline_memcpy_async(dst, in ? src : xsrc, 16, in ? 0 : 16);
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const bool in = x_in && k + q < K;
+        __pipeline_memcpy_async(dst + q, in ? src + q : xsrc, 4, in ? 0 : 4);
+      }
+    }
+  }
+};
+
+// The P bytes of packed row `row` of a slot at column P*g, in words.
+template <int P>
+__device__ __forceinline__ void dec_piece(const uint8_t* ws, int row, int g,
+                                          uint32_t (&w)[(P + 3) / 4]) {
+  static_assert(P == 2 || P == 16, "the decode tiles read 2- or 16-byte pieces");
+  const uint8_t* p = ws + row * dec_wstride<P>() + P * g;
+  if constexpr (P == 16) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+  } else {
+    w[0] = *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+// Byte b of piece words `lo` at bits 0..7 and of `hi` at bits 16..23.
+template <int P>
+__device__ __forceinline__ uint32_t dec_spread(const uint32_t (&lo)[(P + 3) / 4],
+                                               const uint32_t (&hi)[(P + 3) / 4], int b) {
+  const int i = b % 4;
+  return __byte_perm(lo[b / 4], hi[b / 4], i | (i << 4) | ((4 + i) << 8) | ((4 + i) << 12));
+}
+
+// The fields `MASK` keeps of t as a bf16 pair, each field - offset: one
+// lop3 ((t & MASK) | (128 in both halves' exponent)) and one bf16x2
+// subtraction of (128 + offset).
+template <uint32_t MASK>
+__device__ __forceinline__ uint32_t dec_pair(uint32_t t, uint32_t bias) {
+  uint32_t f, r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;\n" : "=r"(f) : "r"(t), "n"(MASK), "r"(0x43004300u));
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(f), "r"(bias));
+  return r;
+}
+
+// Byte b of a piece, alone in the low byte.
+template <int P>
+__device__ __forceinline__ uint32_t dec_byte(const uint32_t (&w)[(P + 3) / 4], int b) {
+  return __byte_perm(w[b / 4], 0, 0x4440 + (b % 4));
+}
+
+// An int8 code pair (lo: the lower k) as bf16: exact integers, whose f32
+// upper halves are their bf16 values.
+__device__ __forceinline__ uint32_t dec_int8_pair(uint32_t lo, uint32_t hi) {
+  return __byte_perm(code_tf32(lo ^ 0x80u, 8388736.f), code_tf32(hi ^ 0x80u, 8388736.f), 0x7632);
+}
+
+// x (E, M <= 8, K) @ (codes (E, K*bits/8, N) . scales (E, G, N)) -> (E, M,
+// N): block (column strip of 8P, expert), NW warps over K. GROUPED: G > 1
+// with groups a whole number of 16-k units.
+template <int BITS, bool GROUPED, int P, int NW, int R>
+__global__ void __launch_bounds__(NW * 32)
+qgemv_tc_kernel(const float* __restrict__ x, const uint8_t* __restrict__ wp,
+                const float* __restrict__ s, float* __restrict__ out, int M, int K, int N, int G,
+                int wvec) {
+  constexpr int kBN = 8 * P;
+  constexpr int kTiles = P / 2;
+  constexpr int kPasses = P <= 4 ? 3 : 1;  // accumulators per tile: one per pass when few
+  constexpr int kSlot = dec_slot_bytes<BITS, P>();
+  constexpr int kWS = dec_wstride<P>();
+  constexpr int kXS = dec_xstride<BITS>();
+  constexpr int kThreads = NW * 32;
+  static_assert(kThreads % kBN == 0, "a thread's output column is fixed");
+  extern __shared__ __align__(16) unsigned char smem[];
+
+  const int e = blockIdx.y;
+  x += static_cast<size_t>(e) * M * K;
+  wp += static_cast<size_t>(e) * (K * BITS / 8) * N;
+  s += static_cast<size_t>(e) * G * N;
+  out += static_cast<size_t>(e) * M * N;
+  const int n0 = blockIdx.x * kBN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int w = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  // the per-channel scale of this thread's output column
+  float sc_out = 0.f;
+  if constexpr (!GROUPED) {
+    if (tid < kMaxM * kBN && n0 + tid % kBN < N) sc_out = __ldg(s + n0 + tid % kBN);
+  }
+
+  float acc[kTiles][kPasses][4];
+  float tot[kTiles][4];  // GROUPED: the scaled sum of the finished groups
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int p = 0; p < kPasses; ++p) acc[j][p][c] = 0.f;
+      tot[j][c] = 0.f;
+    }
+  const int group = K / G;
+  int cur_g = -1;
+  auto fold = [&](int grp) {  // tot += acc * s[grp, col]; acc = 0
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      const int col = n0 + P * g + 2 * j;
+      const float s0 = col < N ? __ldg(s + static_cast<size_t>(grp) * N + col) : 0.f;
+      const float s1 = col + 1 < N ? __ldg(s + static_cast<size_t>(grp) * N + col + 1) : 0.f;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float v = acc[j][0][c];
+#pragma unroll
+        for (int p = 1; p < kPasses; ++p) v += acc[j][p][c];
+        tot[j][c] = fmaf(v, c < 2 ? s0 : s1, tot[j][c]);
+#pragma unroll
+        for (int p = 0; p < kPasses; ++p) acc[j][p][c] = 0.f;
+      }
+    }
+  };
+
+  // this warp's units: a contiguous share of K, u_begin .. u_begin + nu - 1
+  const int units = (K + kDecUnit - 1) / kDecUnit;
+  const int nu = units / NW + (w < units % NW);
+  const int u_begin = w * (units / NW) + min(w, units % NW);
+  uint8_t* ring = smem + w * R * kSlot;
+  const DecLoader<BITS, P> loader(x, wp, M, K, N, n0, wvec, lane);
+#pragma unroll
+  for (int i = 0; i < R - 1; ++i) {
+    if (i < nu) loader.load(ring + i * kSlot, u_begin + i, lane);
+    __pipeline_commit();
+  }
+  for (int i = 0; i < nu; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(R - 2) : "memory");  // unit i's copies landed
+    __syncwarp();                  // every lane's; and the slot of unit i - 1 is free
+    const int nxt = i + R - 1;
+    if (nxt < nu) loader.load(ring + (nxt % R) * kSlot, u_begin + nxt, lane);
+    __pipeline_commit();
+
+    const int u = u_begin + i;
+    if constexpr (GROUPED) {
+      const int grp = u * kDecUnit / group;
+      if (grp != cur_g) {
+        if (cur_g >= 0) fold(cur_g);
+        cur_g = grp;
+      }
+    }
+    const uint8_t* ws = ring + (i % R) * kSlot;
+    const float* xs = reinterpret_cast<const float*>(ws + dec_rows<BITS>() * kWS) + g * kXS;
+    // B: x of batch row g at this thread's four physical k, in three parts
+    float v[4];
+    if constexpr (BITS == 4) {
+      const float2 lo = *reinterpret_cast<const float2*>(xs + 2 * t);
+      const float2 hi = *reinterpret_cast<const float2*>(xs + 2 * t + 8);
+      v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+    } else if constexpr (BITS == 2) {
+      const float4 q = *reinterpret_cast<const float4*>(xs + 4 * t);
+      v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+    } else {
+#pragma unroll
+      for (int i4 = 0; i4 < 4; ++i4) v[i4] = xs[t + 4 * i4];
+    }
+    uint32_t b[3][2];
+#pragma unroll
+    for (int lv = 0; lv < 3; ++lv) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        b[lv][h] = __byte_perm(__float_as_uint(v[2 * h]), __float_as_uint(v[2 * h + 1]), 0x7632);
+      }
+#pragma unroll
+      for (int i4 = 0; i4 < 4; ++i4) {
+        v[i4] = __fsub_rn(v[i4], __uint_as_float(__float_as_uint(v[i4]) & 0xFFFF0000u));
+      }
+    }
+    // A: this thread's pieces of the unit's packed rows
+    constexpr int kPieceRows = BITS == 2 ? 1 : (BITS == 4 ? 2 : 4);
+    uint32_t pc[kPieceRows][(P + 3) / 4];
+#pragma unroll
+    for (int r = 0; r < kPieceRows; ++r) dec_piece<P>(ws, t + 4 * r, g, pc[r]);
+    // the pieces shifted so that a byte's upper field lands on the next
+    // byte's place: W4 pc >> 4 (row t, row t + 4); W2 pc >> 2, >> 4, >> 6
+    constexpr int kShifts = BITS == 4 ? 2 : (BITS == 2 ? 3 : 0);
+    uint32_t sh[kShifts > 0 ? kShifts : 1][(P + 3) / 4];
+#pragma unroll
+    for (int q = 0; q < (P + 3) / 4; ++q) {
+      if constexpr (BITS == 4) {
+        sh[0][q] = pc[0][q] >> 4;
+        sh[1][q] = pc[1][q] >> 4;
+      } else if constexpr (BITS == 2) {
+        sh[0][q] = pc[0][q] >> 2;
+        sh[1][q] = pc[0][q] >> 4;
+        sh[2][q] = pc[0][q] >> 6;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kTiles; ++j) {
+      uint32_t a[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {  // h: row g (byte 2j) or g + 8 (byte 2j + 1)
+        const int by = 2 * j + h;  // byte of the pieces: column P g + 2j + h
+        if constexpr (BITS == 4) {  // nibbles lo, hi of the byte to bits 0, 16
+          a[h] = dec_pair<0x000F000Fu>(dec_spread<P>(pc[0], sh[0], by), 0x43084308u);
+          a[2 + h] = dec_pair<0x000F000Fu>(dec_spread<P>(pc[1], sh[1], by), 0x43084308u);
+        } else if constexpr (BITS == 2) {  // fields 0, 1 and 2, 3 of the byte to bits 0, 16
+          a[h] = dec_pair<0x00030003u>(dec_spread<P>(pc[0], sh[0], by), 0x43024302u);
+          a[2 + h] = dec_pair<0x00030003u>(dec_spread<P>(sh[1], sh[2], by), 0x43024302u);
+        } else {
+          a[h] = dec_int8_pair(dec_byte<P>(pc[0], by), dec_byte<P>(pc[1], by));
+          a[2 + h] = dec_int8_pair(dec_byte<P>(pc[2], by), dec_byte<P>(pc[3], by));
+        }
+      }
+#pragma unroll
+      for (int lv = 0; lv < 3; ++lv) mma_bf16(acc[j][lv % kPasses], a, b[lv][0], b[lv][1]);
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();  // every warp is done with its ring: reuse it for the partial tiles
+  if constexpr (GROUPED) {
+    if (cur_g >= 0) fold(cur_g);
+  }
+
+  // red[w][n][col] (row stride kBN + 4): d0/d2 are columns P g + 2j and + 1
+  // of batch row 2t, d1/d3 the same of row 2t + 1
+  float* red = reinterpret_cast<float*>(smem);
+  constexpr int kRS = kBN + 4;
+#pragma unroll
+  for (int j = 0; j < kTiles; ++j) {
+    float d[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if constexpr (GROUPED) {
+        d[c] = tot[j][c];
+      } else {
+        d[c] = acc[j][0][c];
+#pragma unroll
+        for (int p = 1; p < kPasses; ++p) d[c] += acc[j][p][c];
+      }
+    }
+    float* r0 = red + (w * kMaxM + 2 * t) * kRS + P * g + 2 * j;
+    *reinterpret_cast<float2*>(r0) = make_float2(d[0], d[2]);
+    *reinterpret_cast<float2*>(r0 + kRS) = make_float2(d[1], d[3]);
+  }
+  __syncthreads();
+  for (int o = tid; o < kMaxM * kBN; o += kThreads) {
+    const int m = o / kBN;
+    const int col = o % kBN;
+    if (m >= M || n0 + col >= N) continue;
+    float v = red[m * kRS + col];
+#pragma unroll
+    for (int ww = 1; ww < NW; ++ww) v += red[(ww * kMaxM + m) * kRS + col];
+    if constexpr (!GROUPED) v *= sc_out;
+    out[static_cast<size_t>(m) * N + n0 + col] = v;
+  }
+}
+
+// The decode body's configurations (spec.QMM_DEC_TILES): columns a block
+// (8P), warps over K (NW), ring slots a warp (R).
+template <int BITS, bool GROUPED, int P, int NW, int R>
+int launch_dec_kernel(const float* x, const uint8_t* wp, const float* s, float* out, int E, int M,
+                      int K, int N, int G, int smem, int wvec, cudaStream_t st) {
+  constexpr int need = dec_smem_bytes<BITS, P, NW, R>();
+  if (smem != need) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = qgemv_tc_kernel<BITS, GROUPED, P, NW, R>;
+  static bool cap_raised = false;  // once per instance: dynamic shared memory above 48 KB
+  if (!cap_raised) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, need);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cap_raised = true;
+  }
+  const dim3 grid((N + 8 * P - 1) / (8 * P), E);
+  kern<<<grid, NW * 32, need, st>>>(x, wp, s, out, M, K, N, G, wvec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// tile 2: 16 columns, 16 warps, 9 slots (qgemv's narrow matrices: a block
+// per 16 columns, every unit of a warp in flight at K 2048); tile 3: 128
+// columns, 4 warps, 4 slots (the stacked experts' stream: 32 KB a block, so
+// 5 blocks share an SM, ~60 KB of codes in flight).
+int launch_dec_any(const void* x, const void* wp, const void* s, void* out, int E, int M, int K,
+                   int N, int G, int bits, int tile, int smem, int wvec, cudaStream_t st) {
+  if (M > kMaxM || (tile != 2 && tile != 3) || (G > 1 && (K / G) % kDecUnit != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float* xf = static_cast<const float*>(x);
+  const uint8_t* w8 = static_cast<const uint8_t*>(wp);
+  const float* sf = static_cast<const float*>(s);
+  float* of = static_cast<float*>(out);
+#define QDEC_LAUNCH(B, GR)                                                                  \
+  return tile == 2                                                                          \
+             ? launch_dec_kernel<B, GR, 2, 16, 9>(xf, w8, sf, of, E, M, K, N, G, smem, wvec, st) \
+             : launch_dec_kernel<B, GR, 16, 4, 4>(xf, w8, sf, of, E, M, K, N, G, smem, wvec, st)
+  switch (bits * 2 + (G > 1)) {
+    case 4: QDEC_LAUNCH(2, false);
+    case 5: QDEC_LAUNCH(2, true);
+    case 8: QDEC_LAUNCH(4, false);
+    case 9: QDEC_LAUNCH(4, true);
+    case 16: QDEC_LAUNCH(8, false);
+    case 17: QDEC_LAUNCH(8, true);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef QDEC_LAUNCH
+}
+
 // Launch `kern` as the plan says: `threads` a block, `smem` bytes of
 // dynamic shared memory (which must be what the instance needs: the plan
 // and the kernel agree, or nothing runs), and K split over a cluster of
@@ -1465,34 +1778,16 @@ int launch_tc_any(const void* x, const void* wp, const void* s, void* out, int E
 
 extern "C" {
 
+// Bodies of the entry points, chosen by the caller's plan
+// (kernels/spec.py plan_qmatmul, plan_qgemv): the CUDA-core tile, the
+// tensor-core tile, and at M <= 8 the CUDA-core decode body and the
+// tensor-core one.
+enum Body { kBodySimt = 0, kBodyTc = 1, kBodyGemv = 2, kBodyGemvTc = 3 };
+
 // Each entry point launches on `stream` and returns cudaGetLastError():
-// 0 when the launch was accepted.
-int qgemv_launch(const void* x, const void* wp, const void* s, void* out,
-                 int M, int K, int N, int G, int bits, int vec, void* stream) {
-  if (M < 1 || M > kMaxM || K < 1 || N < 1 || G < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 block(kGemvTX, kGemvTY);
-  const dim3 grid((N + kGemvCols - 1) / kGemvCols, kGemvSplit);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* xf = static_cast<const float*>(x);
-  const uint8_t* w8 = static_cast<const uint8_t*>(wp);
-  const float* sf = static_cast<const float*>(s);
-  float* of = static_cast<float*>(out);
-  switch (bits) {
-    case 2: qgemv_kernel<2><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
-    case 4: qgemv_kernel<4><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
-    case 8: qgemv_kernel<8><<<grid, block, 0, st>>>(xf, w8, sf, of, M, K, N, G, vec); break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Bodies of the tiled entry points, chosen by the caller's plan
-// (kernels/spec.py plan_qmatmul): the CUDA-core tile, the tensor-core tile,
-// and (qmatmul_grouped, M <= 8) the decode body.
-enum Body { kBodySimt = 0, kBodyTc = 1, kBodyGemv = 2 };
-
-// vec: the widest copy of packed-code row pieces that N and the codes'
-// base allow, 16, 4 or 1 bytes. tile/split/smem: the tensor-core plan.
+// 0 when the launch was accepted. vec: the widest copy of packed-code row
+// pieces that N and the codes' base allow, 16, 4 or 1 bytes. body, tile,
+// split, smem: the plan. qgemv is qmatmul_grouped with one expert.
 int qmatmul_launch(const void* x, const void* wp, const void* s, void* out,
                    int M, int K, int N, int G, int bits, int vec, int body, int tile,
                    int split, int smem, void* stream) {
@@ -1520,7 +1815,8 @@ int qmatmul_launch(const void* x, const void* wp, const void* s, void* out,
 }
 
 // Stacked experts: x (E, M, K), wp (E, K*bits/8, N), s (E, G, N), out
-// (E, M, N). The decode body takes M <= 8 rows per expert; the tiles any M.
+// (E, M, N); E = 1 for qgemv. The decode bodies take M <= 8 rows per
+// expert; the tiles any M.
 int qmatmul_grouped_launch(const void* x, const void* wp, const void* s, void* out,
                            int E, int M, int K, int N, int G, int bits, int vec, int body,
                            int tile, int split, int smem, void* stream) {
@@ -1530,6 +1826,10 @@ int qmatmul_grouped_launch(const void* x, const void* wp, const void* s, void* o
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (body == kBodyTc) {
     const int err = launch_tc_any(x, wp, s, out, E, M, K, N, G, bits, tile, split, smem, vec, st);
+    return err != 0 ? err : static_cast<int>(cudaGetLastError());
+  }
+  if (body == kBodyGemvTc) {
+    const int err = launch_dec_any(x, wp, s, out, E, M, K, N, G, bits, tile, smem, vec, st);
     return err != 0 ? err : static_cast<int>(cudaGetLastError());
   }
   const float* xf = static_cast<const float*>(x);

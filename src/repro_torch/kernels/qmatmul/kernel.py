@@ -3,12 +3,20 @@
 Three hand-written kernels in ``csrc/qmatmul.cu`` replace the JAX
 package's Pallas TPU kernels (``src/repro/kernels/qmatmul/kernel.py``):
 
-  qgemv    replaces ``kernel.py::qgemv`` (decode, M <= 8 rows). Under 1 MB
-           of packed weight per call, so parallelism and latency are its
-           limit: a cluster of 8 blocks splits K for each 64-column strip
-           and is summed through distributed shared memory; 32-bit loads
-           of packed bytes are unpacked in registers and each group's scale
-           multiplies its partial sum.
+  qgemv    replaces ``kernel.py::qgemv`` (decode, M <= 8 rows). The
+           tensor-core decode body: mma.sync.m16n8k16 bf16 with the
+           operands swapped (out^T = W^T x^T: 16 weight columns of codes,
+           exact in bf16, against x^T with the batch rows as the MMA's 8
+           columns, x in three bf16 passes, < 2^-21 relative a product),
+           each group's scale applied to its partial sum. Under 1 MB of
+           packed weight per call, so latency is its limit: a block per 16
+           columns over all of K, its 16 warps each streaming their 16-k
+           units through their own cp.async ring (all issued before the
+           first MMA), meeting once in shared memory in warp order. Scale
+           groups that are not a whole number of 16 k take the CUDA-core
+           decode body (a block per 64 columns over all of K, each code
+           scaled as it is decoded). qgemv launches as qmatmul_grouped
+           with one expert.
   qmatmul  replaces ``kernel.py::qmatmul`` (prefill GEMM, any M). The
            tensor-core body: MMAs on exact integer codes with x split so
            that its parts carry it to < 2^-21 relative (well inside the
@@ -27,15 +35,16 @@ package's Pallas TPU kernels (``src/repro/kernels/qmatmul/kernel.py``):
            number of k-units (8 k, 16 for W2) take the CUDA-core body (64 x
            64 f32 FMA tile).
   qmatmul_grouped  replaces ``kernel.py::qmatmul_grouped`` (stacked MoE
-           experts, x (E, M, K) @ (E, K*bits/8, N) codes). M <= 8 runs the
-           decode body, one block per (expert, 64 columns) fed by a 4-stage
-           cp.async ring, f32 FMA; more rows take qmatmul's tensor-core
-           body (or its CUDA-core body for short groups) with the expert on
-           the grid. Operands are found by offsets into the stacked codes,
-           so no (E, K, N) dequantized copy exists.
+           experts, x (E, M, K) @ (E, K*bits/8, N) codes). M <= 8 runs
+           qgemv's decode body with the expert on the grid, a block per
+           128 columns streaming the 92 MB of W4 codes a call (bound by
+           bytes); more rows take qmatmul's tensor-core body with the
+           expert on the grid. Short scale groups keep CUDA-core bodies.
+           Operands are found by offsets into the stacked codes, so no (E,
+           K, N) dequantized copy exists.
 
-The body, tile and split of a call come from ``spec.plan_qmatmul`` (the
-shape alone) and are passed to the launcher; :data:`BODY_LAUNCHES` counts
+The body, tile and split of a call come from ``spec.plan_qmatmul`` /
+``spec.plan_qgemv`` (the shape alone) and are passed to the launcher; :data:`BODY_LAUNCHES` counts
 launches per body. All mask ragged M, N and K, so the TPU-only padding of
 ``ops._qmm_2d`` does not exist here, and all are deterministic (fixed
 summation orders, no atomics). The library is compiled with ``nvcc`` for
@@ -57,19 +66,21 @@ import torch
 
 from ..build import build_dir, build_library, on_device  # noqa: F401 (build_dir)
 from ..spec import (describe_qgemv, describe_qmatmul, describe_qmatmul_grouped,
-                    plan_qmatmul)
+                    plan_qgemv, plan_qmatmul)
 
 SOURCES = (Path(__file__).resolve().parent / "csrc" / "qmatmul.cu",)
 
 # Kernel launches since the last reset_launches(): one per launch that the
 # CUDA runtime accepted.
 LAUNCHES = {"qgemv": 0, "qmatmul": 0, "qmatmul_grouped": 0}
-# The same launches of the tiled kernels by body (spec.plan_qmatmul): "tc"
-# tensor cores, "simt" CUDA cores, "gemv" the grouped decode body.
-BODY_LAUNCHES = {"qmatmul": {"tc": 0, "simt": 0},
-                 "qmatmul_grouped": {"tc": 0, "simt": 0, "gemv": 0}}
-_BODY_CODE = {"simt": 0, "tc": 1, "gemv": 2}
-_TILE_CODE = {"short": 0, "wide": 1}
+# The same launches by body (spec.plan_qmatmul, spec.plan_qgemv): "tc" and
+# "simt" the tiles on tensor and CUDA cores, "gemv_tc" and "gemv" the
+# decode bodies (M <= 8) on tensor and CUDA cores.
+BODY_LAUNCHES = {"qgemv": {"gemv_tc": 0, "gemv": 0},
+                 "qmatmul": {"tc": 0, "simt": 0},
+                 "qmatmul_grouped": {"tc": 0, "simt": 0, "gemv_tc": 0, "gemv": 0}}
+_BODY_CODE = {"simt": 0, "tc": 1, "gemv": 2, "gemv_tc": 3}
+_TILE_CODE = {"short": 0, "wide": 1, "dec16": 2, "dec128": 3}
 
 # Set by load_library(): library path, whether it was compiled in this
 # process, build seconds and the compiler's register/spill report.
@@ -93,8 +104,6 @@ def load_library() -> ctypes.CDLL:
         return _LIB
     lib, info = build_library("qmatmul", SOURCES)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.qgemv_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
-    lib.qgemv_launch.restype = i32
     # ..., bits, vec, then the plan: body, tile, split, shared-memory bytes
     lib.qmatmul_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32,
                                    i32, i32, i32, i32, ptr]
@@ -156,20 +165,22 @@ def _launched(lib, name: str, err: int, body: str | None = None) -> None:
 def qgemv(x: torch.Tensor, w_packed: torch.Tensor, scales: torch.Tensor, *,
           bits: int) -> torch.Tensor:
     """Decode GEMV on the card: x (M <= 8, K) f32 @ dequant(w_packed
-    (K*bits/8, N) int8, scales (G, N) f32) -> (M, N) f32."""
+    (K*bits/8, N) int8, scales (G, N) f32) -> (M, N) f32; the body and tile
+    from ``spec.plan_qgemv`` (not from M)."""
     sp = describe_qgemv(tuple(x.shape), tuple(w_packed.shape),
                         tuple(scales.shape), bits=bits)
     _check_operands("qgemv", x, w_packed, scales)
+    plan = plan_qgemv(sp["K"], sp["N"], sp["G"], bits)
     lib = load_library()
     x = _aligned(x)
     out = torch.empty((sp["M"], sp["N"]), dtype=torch.float32, device=x.device)
     with on_device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.qgemv_launch(x.data_ptr(), w_packed.data_ptr(),
-                               scales.data_ptr(), out.data_ptr(), sp["M"],
-                               sp["K"], sp["N"], sp["G"], bits,
-                               int(_wvec(w_packed, sp["N"]) >= 4), stream)
-    _launched(lib, "qgemv", err)
+        err = lib.qmatmul_grouped_launch(
+            x.data_ptr(), w_packed.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), 1, sp["M"], sp["K"], sp["N"], sp["G"], bits,
+            _wvec(w_packed, sp["N"]), *_plan_args(plan), stream)
+    _launched(lib, "qgemv", err, plan.body)
     return out
 
 
@@ -200,7 +211,7 @@ def qmatmul_grouped(x: torch.Tensor, w_packed: torch.Tensor,
     """Stacked-expert GEMM on the card: x (E, M, K) f32 @ dequant(w_packed
     (E, K*bits/8, N) int8, scales (E, G, N) f32) -> (E, M, N) f32, any M,
     ragged M and N masked in the kernel; the body from
-    ``spec.plan_qmatmul(..., grouped=True)``."""
+    ``spec.plan_qmatmul(..., grouped=True)`` (M <= 8: ``plan_qgemv``)."""
     sp = describe_qmatmul_grouped(tuple(x.shape), tuple(w_packed.shape),
                                   tuple(scales.shape), bits=bits)
     _check_operands("qmatmul_grouped", x, w_packed, scales)

@@ -8,9 +8,11 @@ x values per byte, scales span N, each scale group a whole number of
 packed rows), the GQA grouping of ``kv_decode`` (H % K == 0), and the
 limits the CUDA kernels really have (decode rows, head dim, group size).
 
-``plan_qmatmul`` is the launch plan of the tiled packed matmuls: body,
-tile, split of K, grid and shared memory per block, from the shape alone,
-checked against the card's per-block shared-memory budget.
+``plan_qmatmul`` and ``plan_qgemv`` are the launch plans of the packed
+matmuls: body, tile, split of K, grid and shared memory per block, from
+the shape alone (the decode plan not even from M), checked against the
+card's per-block shared-memory budget. ``kv_decode_body`` picks
+``kv_decode``'s body from the head dim.
 """
 from __future__ import annotations
 
@@ -23,9 +25,11 @@ QGEMV_M_MAX = 8
 
 # kv_decode keeps the G = H/K query rows of one (batch, kv-head) and their
 # f32 accumulators in one block: at most this many rows of at most
-# KV_HD_MAX values, read in 16-byte vectors of int8 codes (hd % 16 == 0).
+# KV_HD_MAX values, read in 16-byte vectors of int8 codes (hd % 16 == 0)
+# or 8-byte ones (the other multiples of 8).
 KV_G_MAX = 16
 KV_HD_MAX = 256
+KV_BODIES = {"v16": 16, "v8": 8}  # body -> bytes a load
 
 # The card the plans are made for, an H100 SXM: its SMs, and the shared
 # memory one block may use (227 KB). Fixed here: no run-time query, so a
@@ -58,6 +62,14 @@ QMM_SIMT_TILE = (64, 64, 32)
 QMM_SIMT_THREADS = 256
 QMM_GEMV_COLS = 64
 QMM_GEMV_THREADS = 256
+# The tensor-core decode body of qgemv / qmatmul_grouped at M <= 8
+# (mma.sync.m16n8k16 bf16, operands swapped: 16 weight columns x the batch
+# rows, x in three passes): name -> (columns a block, warps splitting K,
+# ring slots a warp). A slot holds one 16-k unit; its scale groups must be
+# a whole number of units. "dec16" takes qgemv's narrow matrices (a block
+# per 16 columns), "dec128" the stacked experts' stream.
+QMM_DEC_TILES = {"dec16": (16, 16, 9), "dec128": (128, 4, 4)}
+QMM_DEC_UNIT = 16
 
 
 class KernelSpecError(ValueError):
@@ -177,16 +189,27 @@ def qmm_tc_smem(bits: int, tile: str) -> int:
             + (QMM_TC_BK // QMM_WIDE_UNIT) * (bn // 8) * 272 + bn * 4)
 
 
+def qmm_dec_smem(bits: int, tile: str) -> int:
+    """Dynamic shared memory of one decode-body block, as the kernel lays
+    it out: every warp's ring of slots (a unit's 2 * bits packed rows of
+    the block's columns, rows 160 bytes apart for 128 columns, then x's 8
+    rows of 16 k at a stride of 24 floats for W4, 48 for W2, 20 for W8), or
+    the warps' 8 x (columns + 4) partial tiles in the same memory."""
+    bn, warps, slots = QMM_DEC_TILES[tile]
+    slot = 2 * bits * (160 if bn == 128 else bn) + QGEMV_M_MAX * {4: 24, 2: 48, 8: 20}[bits] * 4
+    return max(warps * slots * slot, warps * QGEMV_M_MAX * (bn + 4) * 4)
+
+
 class QmmPlan(NamedTuple):
-    """Launch plan of one qmatmul / qmatmul_grouped call."""
-    body: str            # "tc" (tensor cores), "simt" (CUDA cores), "gemv" (grouped, M <= 8)
-    tile: str            # tile class: "short" or "wide" (tc), else the body's name
+    """Launch plan of one qgemv / qmatmul / qmatmul_grouped call."""
+    body: str            # "tc" / "simt" (tiles, tensor / CUDA cores), "gemv_tc" / "gemv" (M <= 8)
+    tile: str            # tile class: "short", "wide", "dec16", "dec128", else the body's name
     arith: str           # "tf32x2", "bf16x3" (passes over x on the tensor cores) or "f32"
     bm: int
     bn: int
     bk: int
-    split: int           # blocks of a cluster that split K
-    stages: int          # cp.async ring depth (0: loads through registers)
+    split: int           # ways K is split: blocks of a cluster (tiles), warps (gemv_tc)
+    stages: int          # cp.async ring depth (a warp's slots for gemv_tc; 0: loads through registers)
     threads: int
     grid: tuple          # (x, y, z) blocks
     blocks: int
@@ -198,11 +221,41 @@ def _ceil(a: int, b: int) -> int:
 
 
 @functools.lru_cache(maxsize=4096)
+def plan_qgemv(K: int, N: int, G: int, bits: int, E: int = 1) -> QmmPlan:
+    """Plan the decode matmul x (E, M <= 8, K) @ (codes, scales) -> (E, M,
+    N) from K, N, G, bits and E alone: not from M, so a row's result does
+    not depend on how many rows share the call. The tensor-core body
+    ("gemv_tc") unless the scale groups are not a whole number of its 16-k
+    units, which take the CUDA-core decode body ("gemv": a block per 64
+    columns and expert, each code scaled as it is decoded). The tile is
+    the widest whose grid fills the card (one block per 128 columns and
+    expert), else the narrowest (16 columns a block)."""
+    _check(min(K, N, G, E) >= 1 and bits in (2, 4, 8) and K % G == 0,
+           "qgemv", f"no plan for K={K} N={N} G={G} bits={bits} E={E}")
+    m = QGEMV_M_MAX
+    if G > 1 and (K // G) % QMM_DEC_UNIT:
+        per = 8 // bits
+        stage = (128 // per) * QMM_GEMV_COLS + 128 * m * 4
+        smem = max(4 * stage, 16 * m * QMM_GEMV_COLS * 4)
+        grid = (_ceil(N, QMM_GEMV_COLS), E, 1)
+        return QmmPlan("gemv", "gemv", "f32", m, QMM_GEMV_COLS, 128, 1, 4,
+                       QMM_GEMV_THREADS, grid, grid[0] * grid[1], smem)
+    tile = "dec128" if _ceil(N, QMM_DEC_TILES["dec128"][0]) * E >= SM_COUNT else "dec16"
+    bn, warps, slots = QMM_DEC_TILES[tile]
+    smem = qmm_dec_smem(bits, tile)
+    _check(smem <= SMEM_PER_BLOCK, "qgemv",
+           f"{smem} B of shared memory per block > {SMEM_PER_BLOCK}")
+    grid = (_ceil(N, bn), E, 1)
+    return QmmPlan("gemv_tc", tile, "bf16x3", m, bn, QMM_DEC_UNIT, warps, slots, 32 * warps,
+                   grid, grid[0] * grid[1], smem)
+
+
+@functools.lru_cache(maxsize=4096)
 def plan_qmatmul(M: int, K: int, N: int, G: int, bits: int, E: int = 1,
                  grouped: bool = False) -> QmmPlan:
     """Plan x (E, M, K) @ (codes, scales) -> (E, M, N) from the shape
-    alone. ``grouped`` (qmatmul_grouped): M <= 8 takes the decode body.
-    Otherwise the tensor-core body, unless the scale groups are not a
+    alone. ``grouped`` (qmatmul_grouped): M <= 8 takes the decode plan
+    (:func:`plan_qgemv`, which does not depend on M). Otherwise the tensor-core body, unless the scale groups are not a
     whole number of its k-unit (:func:`qmm_tc_unit`), which takes the
     CUDA-core tile. The tensor-core tile is the short one up to
     ``QMM_SHORT_M`` rows, the wide one above (where the groups are a whole
@@ -215,12 +268,7 @@ def plan_qmatmul(M: int, K: int, N: int, G: int, bits: int, E: int = 1,
     _check(min(M, K, N, G, E) >= 1 and bits in (2, 4, 8) and K % G == 0,
            "qmatmul", f"no plan for M={M} K={K} N={N} G={G} bits={bits} E={E}")
     if grouped and M <= QGEMV_M_MAX:
-        per = 8 // bits
-        stage = (128 // per) * QMM_GEMV_COLS + 128 * QGEMV_M_MAX * 4
-        smem = max(4 * stage, 16 * QGEMV_M_MAX * QMM_GEMV_COLS * 4)
-        grid = (_ceil(N, QMM_GEMV_COLS), E, 1)
-        return QmmPlan("gemv", "gemv", "f32", QGEMV_M_MAX, QMM_GEMV_COLS, 128, 1, 4,
-                       QMM_GEMV_THREADS, grid, grid[0] * grid[1], smem)
+        return plan_qgemv(K, N, G, bits, E)
     if G > 1 and (K // G) % qmm_tc_unit(bits):
         bm, bn, bk = QMM_SIMT_TILE
         split = 1 if grouped else 2
@@ -276,8 +324,9 @@ def describe_kv_decode(q_shape, k8_shape, v8_shape=None, kscale_shape=None,
            f"cache {tuple(k8_shape)} does not match q {tuple(q_shape)}")
     _check(B >= 1 and S >= 1, name, f"empty launch: q {tuple(q_shape)}, "
            f"cache {tuple(k8_shape)}")
-    _check(hd % 16 == 0 and 16 <= hd <= KV_HD_MAX, name,
-           f"head dim hd={hd} must be a multiple of 16 in 16..{KV_HD_MAX}")
+    _check(hd % 8 == 0 and 16 <= hd <= KV_HD_MAX, name,
+           f"head dim hd={hd} must be a multiple of 8 in 16..{KV_HD_MAX}: the "
+           f"kernel reads a row of int8 codes in 8- or 16-byte vectors")
     _check(G <= KV_G_MAX, name,
            f"G = H/K = {G} query rows per kv head; the kernel takes at most "
            f"{KV_G_MAX} (q {tuple(q_shape)}, cache {tuple(k8_shape)})")
@@ -287,7 +336,14 @@ def describe_kv_decode(q_shape, k8_shape, v8_shape=None, kscale_shape=None,
                             ("kpos", kpos_shape, (B, S)), ("cur", cur_shape, (B,))):
         _check(got is None or tuple(got) == want, name,
                f"{what} {tuple(got or ())} should be {want}")
-    return {"B": B, "H": H, "K": K, "G": G, "S": S, "hd": hd}
+    return {"B": B, "H": H, "K": K, "G": G, "S": S, "hd": hd,
+            "body": kv_decode_body(hd)}
+
+
+def kv_decode_body(hd: int) -> str:
+    """``kv_decode``'s body for head dim ``hd`` (a multiple of 8): 16-byte
+    loads of codes ("v16") when hd % 16 == 0, else 8-byte loads ("v8")."""
+    return "v16" if hd % 16 == 0 else "v8"
 
 
 def describe_fakequant(w_shape, scale_shape) -> dict:

@@ -9,8 +9,9 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
 Tolerance: 1e-4 * max|ref| + 1e-5 (f32 sums taken in another order; the
-tensor-core body's x = hi + lo split of TF32 adds below 2^-21 relative per
-product); fakequant: hard bit for bit, soft within 1e-6 * max|ref|.
+tensor-core bodies' split of x, hi + lo in TF32 or three bf16 parts, adds
+below 2^-21 relative per product); fakequant: hard bit for bit, soft
+within 1e-6 * max|ref|.
 """
 import numpy as np
 import pytest
@@ -123,8 +124,10 @@ def test_both_tiled_bodies_launch(cuda):
     kernel.qmatmul_grouped(xg, wpg, sg, bits=4)
     kernel.qmatmul_grouped(xg[:, :8].contiguous(), wpg, sg, bits=4)
     torch.cuda.synchronize()
-    assert kernel.BODY_LAUNCHES == {"qmatmul": {"tc": 2, "simt": 1},
-                                    "qmatmul_grouped": {"tc": 1, "simt": 0, "gemv": 1}}
+    assert kernel.BODY_LAUNCHES == {"qgemv": {"gemv_tc": 0, "gemv": 0},
+                                    "qmatmul": {"tc": 2, "simt": 1},
+                                    "qmatmul_grouped": {"tc": 1, "simt": 0, "gemv_tc": 1,
+                                                        "gemv": 0}}
     assert kernel.LAUNCHES == {"qgemv": 0, "qmatmul": 3, "qmatmul_grouped": 2}
 
 
@@ -136,6 +139,88 @@ def test_qmatmul_is_deterministic(cuda):
         b = kernel.qmatmul(x, wp, s, bits=4)
         torch.cuda.synchronize()
         assert torch.equal(a, b)
+
+
+# The decode bodies (M <= 8): (bits, group, k, n) over the brecq shapes,
+# ragged N (200, 77, 7) and K (W8 100, W4 98, W2 100), groups of 16 and
+# 128 k (tensor cores) and of 8 k (CUDA cores)
+DEC_CASES = [(4, None, 768, 768), (4, None, 2048, 768), (2, None, 768, 2048),
+             (8, None, 100, 200), (4, None, 98, 77), (2, None, 100, 7), (4, 128, 768, 768),
+             (2, 128, 256, 200), (8, 16, 96, 77), (4, 16, 64, 7), (4, 8, 256, 96),
+             (2, 8, 128, 77), (8, 8, 96, 40)]
+
+
+def dec_body(group):
+    return "gemv_tc" if group is None or group % spec.QMM_DEC_UNIT == 0 else "gemv"
+
+
+@pytest.mark.parametrize("bits,group,k,n", DEC_CASES)
+def test_qgemv_decode_bodies_match_plain(cuda, bits, group, k, n):
+    g = 1 if group is None else k // group
+    body = spec.plan_qgemv(k, n, g, bits).body
+    assert body == dec_body(group)
+    for m in range(1, 9):
+        x, wp, s = case(bits, k, n, g, m, cuda, seed=m)
+        before = dict(kernel.BODY_LAUNCHES["qgemv"])
+        check(kernel.qgemv(x, wp, s, bits=bits), ref.qgemv_ref(x, wp, s, bits))
+        assert kernel.BODY_LAUNCHES["qgemv"][body] == before[body] + 1
+
+
+# (bits, group, k, n) at E 64: deepseek-moe-16b's expert shapes, W2,
+# group 128, ragged N, and short groups
+DEC_GROUPED = [(4, None, 2048, 1408), (4, None, 1408, 2048), (2, None, 2048, 1408),
+               (4, 128, 2048, 1408), (8, 16, 256, 200), (4, None, 98, 77), (4, 8, 256, 96),
+               (2, 8, 128, 77)]
+
+
+@pytest.mark.parametrize("bits,group,k,n", DEC_GROUPED)
+def test_qmatmul_grouped_decode_bodies_match_plain(cuda, bits, group, k, n):
+    e = 64
+    g = 1 if group is None else k // group
+    body = spec.plan_qmatmul(8, k, n, g, bits, e, True).body
+    assert body == dec_body(group)
+    for m in range(1, 9):
+        x, wp, s = grouped_case(bits, e, k, n, g, m, cuda, seed=m)
+        before = dict(kernel.BODY_LAUNCHES["qmatmul_grouped"])
+        check(kernel.qmatmul_grouped(x, wp, s, bits=bits), ref.qmm_grouped_ref(x, wp, s, bits))
+        assert kernel.BODY_LAUNCHES["qmatmul_grouped"][body] == before[body] + 1
+
+
+@pytest.mark.parametrize("e", [1, 64])
+@pytest.mark.parametrize("bits,group", [(4, None), (2, 128), (8, None), (4, 8)])
+def test_decode_bodies_are_batch_invariant_and_deterministic(cuda, e, bits, group):
+    """Row m of a call equals the same call on row m alone, and on any
+    prefix of the rows holding it, bit for bit; two calls give the same
+    bits."""
+    k, n = (2048, 768) if e == 1 else (1408, 2048)
+    g = 1 if group is None else k // group
+    if e == 1:
+        x, wp, s = case(bits, k, n, g, 8, cuda)
+        call = lambda a: kernel.qgemv(a.contiguous(), wp, s, bits=bits)  # noqa: E731
+        rows = lambda a, i, j: a[i:j]  # noqa: E731
+    else:
+        x, wp, s = grouped_case(bits, e, k, n, g, 8, cuda)
+        call = lambda a: kernel.qmatmul_grouped(a.contiguous(), wp, s, bits=bits)  # noqa: E731
+        rows = lambda a, i, j: a[:, i:j]  # noqa: E731
+    full, again = call(x), call(x)
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    for m in range(8):
+        assert torch.equal(call(rows(x, m, m + 1)), rows(full, m, m + 1))
+    for j in (3, 5):
+        assert torch.equal(call(rows(x, 0, j)), rows(full, 0, j))
+
+
+def test_short_groups_take_the_cuda_core_decode_bodies(cuda):
+    kernel.reset_launches()
+    x, wp, s = case(4, 256, 96, 32, 8, cuda)  # groups of 8 k
+    check(kernel.qgemv(x, wp, s, bits=4), ref.qgemv_ref(x, wp, s, 4))
+    xg, wpg, sg = grouped_case(2, 4, 128, 77, 16, 8, cuda)
+    check(kernel.qmatmul_grouped(xg, wpg, sg, bits=2), ref.qmm_grouped_ref(xg, wpg, sg, 2))
+    x2, wp2, s2 = case(4, 256, 96, 16, 8, cuda)  # groups of 16 k: tensor cores
+    check(kernel.qgemv(x2, wp2, s2, bits=4), ref.qgemv_ref(x2, wp2, s2, 4))
+    assert kernel.BODY_LAUNCHES["qgemv"] == {"gemv_tc": 1, "gemv": 1}
+    assert kernel.BODY_LAUNCHES["qmatmul_grouped"]["gemv"] == 1
 
 
 def test_int8_odd_k(cuda):
@@ -318,6 +403,34 @@ def test_kv_decode_misaligned_views(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         kv_kernel.kv_decode(q, k8, kv[1], ks, vs, kpos, cur)
     assert kv_kernel.LAUNCHES["kv_decode"] == before
+
+
+# kv_decode at head dim 120 (h2o-danube3-4b: 32 heads over 8 kv heads, G 4):
+# the 8-byte body, with kpos holes and a window
+@pytest.mark.parametrize("B,H,K,S,window,holes", [(8, 32, 8, 96, None, False),
+                                                  (2, 32, 8, 1000, 64, True),
+                                                  (3, 16, 4, 300, None, True),
+                                                  (2, 4, 1, 257, 7, False)])
+def test_kv_decode_head_dim_120_matches_plain(cuda, B, H, K, S, window, holes):
+    args = kv_case(B, H, K, 120, S, cuda, holes=holes)
+    before = dict(kv_kernel.BODY_LAUNCHES["kv_decode"])
+    check(kv_kernel.kv_decode(*args, window=window), kv_decode_ref(*args, window=window))
+    assert kv_kernel.BODY_LAUNCHES["kv_decode"]["v8"] == before["v8"] + 1
+
+
+def test_kv_decode_body_follows_the_head_dim(cuda):
+    """hd 64 keeps the 16-byte body, hd 120 and 24 take the 8-byte one,
+    which reads codes that are 8-byte but not 16-byte aligned."""
+    kv_kernel.reset_launches()
+    for hd in (64, 120, 24):
+        args = kv_case(2, 8, 2, hd, 200, cuda)
+        check(kv_kernel.kv_decode(*args), kv_decode_ref(*args))
+    assert kv_kernel.BODY_LAUNCHES["kv_decode"] == {"v16": 1, "v8": 2}
+    q, k8, v8, ks, vs, kpos, cur = kv_case(2, 8, 2, 120, 200, cuda)
+    kv = [torch.cat([x.reshape(-1)[:8], x.reshape(-1)])[8:].reshape(x.shape) for x in (k8, v8)]
+    assert all(x.data_ptr() % 16 == 8 for x in kv)
+    check(kv_kernel.kv_decode(q, *kv, ks, vs, kpos, cur), kv_decode_ref(q, *kv, ks, vs, kpos, cur))
+    assert kv_kernel.BODY_LAUNCHES["kv_decode"] == {"v16": 1, "v8": 3}
 
 
 def test_kv_decode_is_deterministic(cuda):

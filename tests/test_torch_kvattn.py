@@ -110,8 +110,9 @@ def test_describe_kv_decode_contract():
         spec.describe_kv_decode((2, 6, 64), (2, 96, 4, 64))
     with pytest.raises(spec.KernelSpecError, match="head dim"):
         spec.describe_kv_decode((2, 4, 66), (2, 96, 4, 66))
-    with pytest.raises(spec.KernelSpecError, match="multiple of 16"):
-        spec.describe_kv_decode((2, 4, 120), (2, 96, 4, 120))
+    with pytest.raises(spec.KernelSpecError, match="multiple of 8"):
+        spec.describe_kv_decode((2, 4, 20), (2, 96, 4, 20))
+    assert spec.describe_kv_decode((2, 4, 120), (2, 96, 4, 120))["body"] == "v8"
     with pytest.raises(spec.KernelSpecError, match="at most 16"):
         spec.describe_kv_decode((2, 32, 64), (2, 96, 1, 64))
     with pytest.raises(spec.KernelSpecError, match="kpos"):

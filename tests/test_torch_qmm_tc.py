@@ -311,7 +311,7 @@ def test_plan_is_a_function_of_the_shape():
 def test_plan_grouped_decode_rows_take_the_gemv_body():
     for m in (1, 8):
         p = spec.plan_qmatmul(m, 2048, 1408, 1, 4, 64, True)
-        assert p.body == "gemv" and p.blocks == 22 * 64
+        assert p.body == "gemv_tc" and p.blocks == 11 * 64
     assert spec.plan_qmatmul(8, 2048, 1408, 1, 4).body == "tc"  # qmatmul itself: any M
 
 
