@@ -17,11 +17,14 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              the f32 CUDA-core bound beside it)
   3. kv      hold ``kv_decode`` against its plain version (the engine's
              shape, GQA, MQA, ragged S, a window, kpos holes, a row with no
-             valid slot, head dim 120 with G 4 on the 8-byte body); time
-             kernel, plain version, library yardstick
+             valid slot, head dim 120 with G 4 on the 8-byte body), and its
+             paged entry against the dense kernel on the gathered view, bit
+             for bit (idle rows, holes, hd 120, S_cap 2048, a forced split);
+             time kernel, plain version, library yardstick
              (scaled_dot_product_attention on pre-dequantized,
-             head-expanded K/V) and the bound at the engine's shape, at
-             a long cache and at head dim 120
+             head-expanded K/V) and the bound at the engine's shape, at S
+             1024, 2048 and 4096 and at head dim 120, and the paged entry
+             beside the gather + casts + dense kernel it replaces
   4. serve   run ``repro_torch.launch.serve.main`` at full width (batch 8,
              prompt 64, gen 32) for --quant 4 and --quant 2, save the
              artifact, serve it again through --artifact; check that both
@@ -38,7 +41,11 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              on every call's inputs; the pools' codes compared), through a
              deliberately wrong kv_decode (the logits limit must catch it),
              staggered vs sequential (4 streams), and under page pressure
-             (tokens and logits against the unpressured run)
+             (tokens and logits against the unpressured run); every
+             kv_decode launch on the paged entry. Then the long-context
+             engine: 8 streams of prompts up to 2016 tokens (S_cap 2048),
+             every kv_decode launch paged and split over a cluster, every
+             kv read shadowed by its plain version, kernel vs plain logits
   6. moe     hold ``qmatmul_grouped`` against its plain versions at
              deepseek-moe-16b's expert shapes (E 64; M 4, 8, 9, 64; W4, W2,
              group-128 scales, W3 codes in an int8 container, ragged N) and
@@ -65,7 +72,8 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
   8. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
              64; the launches of each body on the main paths, for qgemv,
-             qmatmul, qmatmul_grouped and kv_decode), the card's
+             qmatmul, qmatmul_grouped and kv_decode, whose launches are also
+             counted by entry and by split), the card's
              name and power limit, and the final ``{"ok": true, "device":
              ...}`` line
 
@@ -128,11 +136,25 @@ KV_CASES = [(8, 12, 12, 64, 96, None, False, False),
             # h2o-danube3-4b's heads: 32 over 8 kv heads of 120 (the 8-byte body)
             (8, 32, 8, 120, 96, None, False, False),
             (4, 32, 8, 120, 1000, 64, True, False)]
-KV_TIMED = {"engine": (8, 12, 12, 64, 96), "long": (8, 12, 12, 64, 4096),
+# paged-entry parity cases (B, H, K, hd, page size, max pages, holes, idle
+# rows): the engine's decode shape with two idle slots, GQA with holes over
+# pages of 4, hd 120 (G 4), the long-context engine's S_cap 2048 (split), and
+# a page size that does not divide the kernel's tile
+KV_PAGED_CASES = [(8, 12, 12, 64, 16, 6, False, 2), (3, 8, 2, 64, 4, 9, True, 1),
+                  (8, 32, 8, 120, 16, 6, True, 0), (8, 12, 12, 64, 16, 128, False, 2),
+                  (3, 4, 1, 120, 5, 40, True, 1)]
+KV_TIMED = {"engine": (8, 12, 12, 64, 96), "s1024": (8, 12, 12, 64, 1024),
+            "s2048": (8, 12, 12, 64, 2048), "long": (8, 12, 12, 64, 4096),
             "hd120": (8, 32, 8, 120, 96)}
 ENGINE_ARGS = ["--arch", "brecq_lm_100m", "--quant", "4", "--engine",
                "--batch", "8", "--prompt-len", "64", "--gen-len", "32",
                "--seed", "0", "--kv-dtype", "int8"]
+# the long-context engine phase: 8 slots and 8 streams of prompts up to 2016
+# tokens, S_cap 2048 (a worst-case pool of 1 + 8 x 128 pages), so that every
+# kv_decode launch splits S over a cluster
+LONG_ENGINE_ARGS = ["--arch", "brecq_lm_100m", "--quant", "4", "--engine",
+                    "--batch", "8", "--prompt-len", "2016", "--gen-len", "32",
+                    "--streams", "8", "--seed", "0", "--kv-dtype", "int8"]
 PRESSURE_PAGES = 19  # below the worst case of 1 + 8 x 6; forces preemptions
 MIN_DISTINCT_TOKENS = 4  # median distinct greedy tokens per engine stream
 MIN_STEPS_SHARED = 0.5  # of an engine comparison's steps on a shared history
@@ -330,15 +352,117 @@ def kv_inputs(torch, B, H, K, hd, S, *, seed=0, holes=False, empty_row=False):
     return q, k8, v8, ks, vs, kpos, cur
 
 
-def kv_bound(B, H, K, hd, S) -> tuple[float, str]:
-    """Least time (ms) of kv_decode: q, k8, v8, both f32 scale planes,
-    kpos, cur and out each moved once, against 4*B*H*S*hd f32 operations
-    (two products of S x hd per query row)."""
-    nbytes = (B * H * hd * 4 + 2 * B * S * K * hd + 2 * B * S * K * 4
-              + B * S * 4 + B * 4 + B * H * hd * 4)
+def paged_inputs(torch, B, H, K, hd, page_size, max_pages, *, seed=0, holes=False,
+                 idle=0):
+    """An int8 page pool as the engine stores it (1 + B * max_pages pages of
+    codes quantized from random f32 K/V, float16 scales; page 0 the sink),
+    block tables (B, max_pages) that give stream b the pages holding
+    positions 0..cur_b in a shuffled order and -1 beyond (``holes``: also
+    about a third of the pages before; the first ``idle`` rows all -1, idle
+    engine slots), q and cur in [S/4, S), S = max_pages * page_size."""
+    from repro_torch.kernels.kvattn.ops import quantize_kv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    P, S = 1 + B * max_pages, max_pages * page_size
+    q = torch.randn((B, H, hd), generator=gen, device=dev)
+    k8, v8, ks, vs = quantize_kv(
+        torch.randn((P, page_size, K, hd), generator=gen, device=dev),
+        torch.randn((P, page_size, K, hd), generator=gen, device=dev))
+    cache = {"k_pages": k8, "v_pages": v8, "k_scale": ks.half(), "v_scale": vs.half()}
+    cur = torch.randint(S // 4, S, (B,), generator=gen, device=dev, dtype=torch.int32)
+    order = 1 + torch.randperm(P - 1, generator=gen, device=dev).to(torch.int32)
+    bt = order.reshape(B, max_pages).clone()
+    page = torch.arange(max_pages, device=dev)[None]
+    bt[page > (cur // page_size)[:, None]] = -1
+    if holes:
+        bt[torch.rand((B, max_pages), generator=gen, device=dev) < 0.3] = -1
+    bt[:idle] = -1
+    return q, cache, bt.contiguous(), cur
+
+
+def _kv_bound(q, K, valid, slot, index_bytes, scale_bytes) -> tuple[float, str]:
+    """Least time (ms) of one K4 call on this run's data. Bytes: q, cur and
+    out moved once, the slot index (kpos or block tables) read once, and the
+    codes and scales of the slots the output depends on, each read once
+    where rows share it: K and V of every slot valid for some row, V alone
+    of every slot of a row with no valid slot (its output is the mean of
+    V). Masked slots of a row that has a valid one weigh 0 and are not
+    charged. Operations: 4*H*hd f32 a (row, valid slot), 2*H*hd a slot of a
+    row with none. ``valid`` (B, S) bool; ``slot`` (B, S) the storage slot
+    each row's slot reads."""
+    import torch
+
+    B, H, hd = q.shape
+    empty = ~valid.any(1)
+    k_slots = slot[valid].unique().numel()
+    v_slots = torch.cat([slot[valid], slot[empty].reshape(-1)]).unique().numel()
+    nbytes = (2 * B * H * hd * 4 + B * 4 + index_bytes
+              + (k_slots + v_slots) * K * (hd + scale_bytes))
+    ops = H * hd * (4 * int(valid.sum()) + 2 * int(empty.sum()) * valid.shape[1])
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = 4 * B * H * S * hd / PEAK_F32_FLOP_S * 1e3
+    t_ops = ops / PEAK_F32_FLOP_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kv_bound(q, kpos, cur, K) -> tuple[float, str]:
+    """:func:`_kv_bound` of the dense entry: f32 scales, kpos (B, S) read
+    whole, slot (b, t) stored once."""
+    import torch
+
+    B, S = kpos.shape
+    valid = (kpos >= 0) & (kpos <= cur[:, None])
+    slot = torch.arange(B * S, device=kpos.device).reshape(B, S)
+    return _kv_bound(q, K, valid, slot, B * S * 4, 4)
+
+
+def kv_paged_bound(q, bt, cur, K, page_size) -> tuple[float, str]:
+    """:func:`_kv_bound` of the paged entry: f16 scales, the block tables
+    read whole, slot t of row b stored at page bt[b, t / page_size] (-1:
+    page 0, masked), so slots shared by rows (idle rows on page 0) count
+    once."""
+    import torch
+
+    from repro_torch.kernels.kvattn.ref import paged_view
+
+    B, mp = bt.shape
+    _, kpos = paged_view({}, bt, page_size)
+    valid = (kpos >= 0) & (kpos <= cur[:, None])
+    offs = torch.arange(page_size, device=bt.device)
+    slot = (bt.clamp_min(0).long()[..., None] * page_size + offs).reshape(B, -1)
+    return _kv_bound(q, K, valid, slot, B * mp * 4, 2)
+
+
+def _gathered(a, ps):
+    """A paged call's operands (q, codes, f16 scales, block tables, cur) as
+    the dense operands the engine gathered before the paged entry:
+    paged_view's rows and kpos, four gathers, two casts to f32."""
+    from repro_torch.kernels.kvattn.ref import paged_view
+
+    q, kp, vp, ks, vs, bt, cur = a
+    gather, kpos = paged_view({}, bt, ps)
+    return q, gather(kp), gather(vp), gather(ks).float(), gather(vs).float(), kpos, cur
+
+
+def sdpa_time(torch, F, kv_ref, args) -> tuple[float, float]:
+    """The library yardstick of K4 on dense operands: one SDPA call on K/V
+    dequantized and expanded to H heads beforehand, the mask added as 0 or
+    -1e30 (so a row with no valid slot gets the mean of V, as K4's does).
+    Returns its time (ms) and its max abs error against the plain
+    version."""
+    q, k8, v8, ks, vs, kpos, cur = args
+    rep_h = q.shape[1] // k8.shape[2]
+    k = (k8.float() * ks[..., None]).repeat_interleave(rep_h, 2).transpose(1, 2)
+    v = (v8.float() * vs[..., None]).repeat_interleave(rep_h, 2).transpose(1, 2)
+    valid = (kpos >= 0) & (kpos <= cur[:, None])
+    mask = torch.where(valid, 0.0, kv_ref.MASK)[:, None, None, :].to(q.dtype)
+    copies = max(2, math.ceil(L2_FLUSH_BYTES / (2 * k.numel() * 4)))
+    sets = [(q[:, :, None].contiguous(), k.contiguous(), v.contiguous(), mask)
+            for _ in range(copies)]
+    t_lib = graph_time_ms(
+        torch, lambda a, b, c, m: F.scaled_dot_product_attention(a, b, c, attn_mask=m), sets)
+    out = F.scaled_dot_product_attention(*sets[0][:3], attn_mask=mask)[:, :, 0]
+    return t_lib, float((out - kv_ref.kv_decode_ref(*args)).abs().max())
 
 
 def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
@@ -346,7 +470,7 @@ def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
     shape and at a long cache."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.spec import kv_decode_body
+    from repro_torch.kernels.spec import kv_decode_body, plan_kv_decode
 
     err_max = 0.0
     for (B, H, K, hd, S, window, holes, empty) in KV_CASES:
@@ -368,6 +492,35 @@ def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
     print(f"[kv] {len(KV_CASES)} kernel-vs-plain cases within 1e-4*max|ref|+1e-5; "
           f"max abs err {err_max:.3e}")
 
+    # the paged entry: the dense kernel on the gathered view, bit for bit
+    from repro_torch.kernels.spec import kv_plan
+
+    cases = 0
+    for (B, H, K, hd, ps, mp, holes, idle) in KV_PAGED_CASES:
+        q, pool, bt, cur = paged_inputs(torch, B, H, K, hd, ps, mp, holes=holes, idle=idle)
+        paged = (q, pool["k_pages"], pool["v_pages"], pool["k_scale"], pool["v_scale"], bt, cur)
+        dense = _gathered(paged, ps)
+        want = kv_ref.kv_decode_ref(*dense)
+        for plan in (None, kv_plan(hd, H // K, 4, 2)):
+            before = dict(kv_kernel.ENTRY_LAUNCHES["kv_decode"])
+            got = kv_kernel.kv_decode_paged(*paged, page_size=ps, plan=plan)
+            if kv_kernel.ENTRY_LAUNCHES["kv_decode"]["paged"] != before["paged"] + 1:
+                fail("kv_decode_paged did not count its launch on the paged entry")
+            ref = kv_kernel.kv_decode(*dense, plan=plan)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            err_max = max(err_max, err)
+            cases += 1
+            if not torch.equal(got, ref):
+                fail(f"paged kv_decode B={B} H={H} K={K} hd={hd} page {ps} x {mp} "
+                     f"plan {plan}: not bit-identical to the dense kernel on the "
+                     f"gathered view ({float((got - ref).abs().max()):.3e})")
+            if not math.isfinite(err) or err > tolerance(want):
+                fail(f"paged kv_decode B={B} H={H} K={K} hd={hd} page {ps} x {mp}: "
+                     f"max abs err {err:.3e} > tol {tolerance(want):.3e}")
+    print(f"[kv] {cases} paged cases bit-identical to the dense kernel on the gathered "
+          f"view and within 1e-4*max|ref|+1e-5 of the plain version")
+
     timed = {}
     for label, (B, H, K, hd, S) in KV_TIMED.items():
         args = kv_inputs(torch, B, H, K, hd, S, seed=1)
@@ -377,39 +530,56 @@ def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
         t_kernel = graph_time_ms(torch, kv_kernel.kv_decode, arg_sets)
         t_plain = graph_time_ms(torch, kv_ref.kv_decode_ref, arg_sets)
         del arg_sets
-        # library yardstick: one SDPA call on K/V dequantized and expanded
-        # to H heads beforehand, with the same boolean mask
-        q, k8, v8, ks, vs, kpos, cur = args
-        rep_h = H // K
-        k = (k8.float() * ks[..., None]).repeat_interleave(rep_h, 2).transpose(1, 2)
-        v = (v8.float() * vs[..., None]).repeat_interleave(rep_h, 2).transpose(1, 2)
-        mask = ((kpos >= 0) & (kpos <= cur[:, None]))[:, None, None, :]
-        lib_copies = max(2, math.ceil(L2_FLUSH_BYTES / (2 * k.numel() * 4)))
-        lib_sets = [(q[:, :, None].contiguous(), k.contiguous(), v.contiguous(), mask)
-                    for _ in range(lib_copies)]
-        t_lib = graph_time_ms(
-            torch, lambda a, b, c, m: F.scaled_dot_product_attention(a, b, c, attn_mask=m),
-            lib_sets)
-        lib_out = F.scaled_dot_product_attention(*lib_sets[0][:3], attn_mask=mask)[:, :, 0]
-        lib_err = float((lib_out - kv_ref.kv_decode_ref(*args)).abs().max())
-        del lib_sets, k, v
-        b_ms, b_by = kv_bound(B, H, K, hd, S)
+        t_lib, lib_err = sdpa_time(torch, F, kv_ref, args)
+        b_ms, b_by = kv_bound(args[0], args[5], args[6], K)
+        plan = plan_kv_decode(B, K, S, hd, H // K)
         timed[label] = {"B": B, "H": H, "K": K, "hd": hd, "S": S,
-                        "body": kv_decode_body(hd), "ms": t_kernel,
+                        "body": kv_decode_body(hd), "warps": plan.warps,
+                        "split": plan.split, "ms": t_kernel,
                         "plain_ms": t_plain, "library_ms": t_lib,
                         "library_max_abs_err": lib_err, "bound_ms": b_ms,
                         "bound_by": b_by}
         print(f"[time] kv_decode {label:6s} B={B} H={H} K={K} hd={hd:3d} S={S:4d}: "
               f"kernel {t_kernel*1e3:9.2f} us  plain {t_plain*1e3:9.2f} us  "
               f"library {t_lib*1e3:9.2f} us (err {lib_err:.1e})  bound "
-              f"{b_ms*1e3:7.2f} us ({b_by})")
+              f"{b_ms*1e3:7.2f} us ({b_by})  {plan.warps} warps, split {plan.split}")
+
+    # the paged entry at the engine's decode shape (6 pages of 16 a stream,
+    # two idle slots), beside the gather + casts + dense kernel it replaces
+    B, H, K, hd, ps, mp = 8, 12, 12, 64, 16, 6
+    q, pool, bt, cur = paged_inputs(torch, B, H, K, hd, ps, mp, seed=1, idle=2)
+    per_set = sum(t.numel() * t.element_size() for t in pool.values())
+    sets = [(q, *(pool[k].clone() for k in ("k_pages", "v_pages", "k_scale", "v_scale")),
+             bt, cur) for _ in range(max(2, math.ceil(L2_FLUSH_BYTES / per_set)))]
+    t_paged = graph_time_ms(torch, lambda *a: kv_kernel.kv_decode_paged(*a, page_size=ps),
+                            sets)
+    t_gd = graph_time_ms(torch, lambda *a: kv_kernel.kv_decode(*_gathered(a, ps)), sets)
+    t_plain = graph_time_ms(torch, lambda *a: kv_ref.kv_decode_ref(*_gathered(a, ps)), sets)
+    t_dense = graph_time_ms(torch, kv_kernel.kv_decode, [_gathered(a, ps) for a in sets])
+    t_lib, lib_err = sdpa_time(torch, F, kv_ref, _gathered(sets[0], ps))
+    del sets
+    b_ms, b_by = kv_paged_bound(q, bt, cur, K, ps)
+    plan = plan_kv_decode(B, K, mp * ps, hd, H // K)
+    timed["paged"] = {"B": B, "H": H, "K": K, "hd": hd, "S": mp * ps, "page_size": ps,
+                      "body": kv_decode_body(hd), "warps": plan.warps, "split": plan.split,
+                      "ms": t_paged, "gather_dense_ms": t_gd, "dense_ms": t_dense,
+                      "plain_ms": t_plain, "library_ms": t_lib,
+                      "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[time] kv_decode paged  B={B} H={H} K={K} hd={hd:3d} S={mp * ps:4d} "
+          f"(pages of {ps}): kernel {t_paged*1e3:9.2f} us  gather + dense kernel "
+          f"{t_gd*1e3:9.2f} us  dense kernel on the gathered view {t_dense*1e3:9.2f} us  "
+          f"plain {t_plain*1e3:9.2f} us  library {t_lib*1e3:9.2f} us (err "
+          f"{lib_err:.1e})  bound {b_ms*1e3:7.2f} us ({b_by})")
     return err_max, timed
+
 
 
 def phase_host(torch, ops, pack) -> dict:
     """Host time per eager call at the decode shape (W4 768x768, M=8): the
     wall time of back-to-back calls, which the host bounds when it is
-    slower than the device. ``matmul`` is an FP ``x @ w`` for reference."""
+    slower than the device. ``matmul`` is an FP ``x @ w`` for reference;
+    ``kv_*`` one layer's int8 decode read at the engine's shape, through the
+    paged entry and through the gather + dense kernel it replaced."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     w = torch.randn((768, 768), generator=gen, device=dev) * 0.02
@@ -431,6 +601,19 @@ def phase_host(torch, ops, pack) -> dict:
             "matmul_us": per_call_us(lambda: x @ w)}
     print(f"[host] eager call at M=8, 768x768: qmm {host['qmm_us']:.2f} us, "
           f"FP matmul {host['matmul_us']:.2f} us")
+
+    # one layer's int8 decode read at the engine's shape: the paged entry,
+    # and the gather + casts + dense kernel the engine ran before it
+    from repro_torch.kernels.kvattn import kernel as kv_kernel
+    from repro_torch.kernels.kvattn import ops as kv_ops
+
+    q, pool, bt, cur = paged_inputs(torch, 8, 12, 12, 64, 16, 6, seed=2, idle=2)
+    paged = (q, pool["k_pages"], pool["v_pages"], pool["k_scale"], pool["v_scale"], bt, cur)
+    host["kv_paged_us"] = per_call_us(lambda: kv_ops.attend_int8_paged(q, pool, bt, cur, 16))
+    host["kv_gather_dense_us"] = per_call_us(lambda: kv_kernel.kv_decode(*_gathered(paged, 16)))
+    print(f"[host] eager int8 decode read at the engine's shape: paged entry "
+          f"{host['kv_paged_us']:.2f} us, gather + casts + dense kernel "
+          f"{host['kv_gather_dense_us']:.2f} us")
     return host
 
 
@@ -546,6 +729,9 @@ def _counted(kernels, fn):
     for k in kernels.values():
         counts.update(k.LAUNCHES)
         bodies.update(copy.deepcopy(getattr(k, "BODY_LAUNCHES", {})))
+        for by in ("ENTRY", "SPLIT"):  # kv_decode's launches by entry and by split
+            for name, d in getattr(k, f"{by}_LAUNCHES", {}).items():
+                bodies[f"{name}_{by.lower()}"] = dict(d)
     return out, counts, bodies
 
 
@@ -564,22 +750,23 @@ def engine_params(torch, model, seed: int = 0):
 
 @contextlib.contextmanager
 def _attend_wrapped(wrap):
-    """Serve with ``kernels.kvattn.ops.attend_int8`` replaced by
-    ``wrap(attend_int8)`` (``paged_attend`` looks it up on every call)."""
+    """Serve with ``kernels.kvattn.ops.attend_int8_paged`` replaced by
+    ``wrap(attend_int8_paged)`` (``paged_attend`` looks it up on every
+    single-token int8 read)."""
     from repro_torch.kernels.kvattn import ops as kv_ops
 
-    orig = kv_ops.attend_int8
-    kv_ops.attend_int8 = wrap(orig)
+    orig = kv_ops.attend_int8_paged
+    kv_ops.attend_int8_paged = wrap(orig)
     try:
         yield
     finally:
-        kv_ops.attend_int8 = orig
+        kv_ops.attend_int8_paged = orig
 
 
 def _shadowed(log: dict):
-    """attend_int8 that also runs the plain version on the same inputs (the
-    engine's own pool) and logs the worst error against the kernel
-    tolerance."""
+    """attend_int8_paged that also runs the plain version (the gathered
+    view and kv_decode_ref) on the same inputs, the engine's own pool and
+    block tables, and logs the worst error against the kernel tolerance."""
     def wrap(orig):
         def attend(*a, **kw):
             out = orig(*a, **kw)
@@ -597,8 +784,7 @@ def _shadowed(log: dict):
 def _newest_key_dropped(orig):
     """A wrong kernel, to read what the logits limit catches: the query
     does not see the key it has just appended (an off-by-one mask)."""
-    return lambda q, k8, v8, ks, vs, kpos, cur, **kw: orig(
-        q, k8, v8, ks, vs, kpos, cur - 1, **kw)
+    return lambda q, cache, bt, cur, ps, **kw: orig(q, cache, bt, cur - 1, ps, **kw)
 
 
 def _engine(serve, model, art, args, streams, backend, sequential=False, **over):
@@ -690,7 +876,8 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
     m = out["metrics"]
     print(f"[engine] main path: kernel launches {launches}; qmatmul bodies "
           f"{bodies['qmatmul']}; qgemv bodies {bodies['qgemv']}; kv_decode bodies "
-          f"{bodies['kv_decode']}")
+          f"{bodies['kv_decode']}, entries {bodies['kv_decode_entry']}, splits "
+          f"{bodies['kv_decode_split']}")
     if min(launches[k] for k in ("qgemv", "qmatmul", "kv_decode")) == 0:
         fail(f"the engine's main path did not launch every kernel: {launches}")
     if bodies["qmatmul"]["tc"] != launches["qmatmul"]:
@@ -700,6 +887,9 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
              f"body: {bodies['qgemv']}")
     if bodies["kv_decode"]["v16"] != launches["kv_decode"]:
         fail(f"the engine's kv_decode (hd 64) left the 16-byte body: {bodies['kv_decode']}")
+    if bodies["kv_decode_entry"]["paged"] != launches["kv_decode"]:
+        fail(f"the engine's decode reads did not all take the paged entry: "
+             f"{bodies['kv_decode_entry']}")
     if set(out["states"].values()) != {"done"}:
         fail(f"engine requests did not all finish: {out['states']}")
     distinct = sorted(len(set(t)) for t in out["tokens"].values())
@@ -797,6 +987,79 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
                       "preempted_vs_unpressured": resumed,
                       "logits_limit": tol, "pressure_metrics": pm,
                       "preempted_uids": hit}
+
+
+def phase_engine_long(torch, serve, kernels, workdir: Path) -> dict:
+    """The serve engine at full width and depth over a long context,
+    through the main entry point: 8 slots, 8 streams of prompts up to 2016
+    tokens (S_cap 2048), int8 pool; every kv_decode launch on the paged
+    entry with S split over a cluster. Then the same schedule through the
+    kernels with every kv read shadowed by its plain version (tokens equal
+    to the main path's), and through the plain versions (logits within
+    ENGINE_LOGIT_TOL of max |logit| on the shared token history)."""
+    import numpy as np
+
+    from repro_torch.deploy import QuantizedArtifact
+    from repro_torch.kernels.spec import plan_kv_decode
+    from repro_torch.models import get_model
+
+    cfg, model = get_model("brecq_lm_100m")
+    params = engine_params(torch, model)
+    art_dir = workdir / "engine_long_w4"
+    main_args = [*LONG_ENGINE_ARGS, "--save-artifact", str(art_dir)]
+    out, launches, bodies = _counted(kernels, lambda: serve.main(main_args, params=params))
+    m = out["metrics"]
+    args = serve.parse_args(main_args)
+    ecfg = serve.engine_config(args, {})
+    s_cap = ecfg.page_size * -(-ecfg.max_len // ecfg.page_size)
+    plan = plan_kv_decode(ecfg.num_slots, cfg.n_kv_heads, s_cap, cfg.d_model // cfg.n_heads)
+    entries, splits = bodies["kv_decode_entry"], bodies["kv_decode_split"]
+    print(f"[engine long] main path: {ecfg.num_pages} pages of {ecfg.page_size} (S_cap "
+          f"{s_cap}), kernel launches {launches}; kv_decode entries {entries}, splits "
+          f"{splits} (plan: {plan.warps} warps, split {plan.split}); "
+          f"{m['tokens_generated']} tokens in {m['wall_s']:.2f}s "
+          f"({m['sustained_tok_s']:.1f} tok/s sustained), occupancy "
+          f"{m['mean_slot_occupancy']:.3f}, resident KV "
+          f"{m['mean_resident_kv_bytes_per_stream']:.0f} B/stream")
+    if min(launches[k] for k in ("qgemv", "qmatmul", "kv_decode")) == 0:
+        fail(f"the long-context engine did not launch every kernel: {launches}")
+    if entries["paged"] != launches["kv_decode"]:
+        fail(f"the long-context engine's decode reads left the paged entry: {entries}")
+    if splits[1] or plan.split == 1:
+        fail(f"the long-context engine's kv_decode launches did not split S: {splits}")
+    if set(out["states"].values()) != {"done"}:
+        fail(f"long-context engine requests did not all finish: {out['states']}")
+    distinct = sorted(len(set(t)) for t in out["tokens"].values())
+    if np.median(distinct) < MIN_DISTINCT_TOKENS:
+        fail(f"the long-context streams' greedy tokens hardly vary ({distinct})")
+
+    art = QuantizedArtifact.load(str(art_dir)).to("cuda")
+    streams = serve.engine_streams(args, cfg.vocab)
+    shadow = {"calls": 0, "max_abs_err": 0.0, "worst_err_over_tol": 0.0}
+    with _attend_wrapped(_shadowed(shadow)):
+        kern = _engine(serve, model, art, args, streams, "cuda")
+    if _tokens(kern) != out["tokens"]:
+        fail("the long-context replay through the kernels gave other tokens than the "
+             "main path")
+    print(f"[engine long] kv_decode vs plain on the engine's inputs: {shadow['calls']} "
+          f"calls, max abs err {shadow['max_abs_err']:.3e}, worst err/tol "
+          f"{shadow['worst_err_over_tol']:.3f}")
+    if shadow["calls"] == 0 or shadow["worst_err_over_tol"] > 1.0:
+        fail(f"long-context kv_decode vs its plain version on the engine's pool: {shadow}")
+    vs_plain = _agree(kern, _engine(serve, model, art, args, streams, "torch"))
+    tol = ENGINE_LOGIT_TOL * vs_plain["max_abs"]
+    print(f"[engine long] {_say('kernel vs plain path, int8 pool', vs_plain)} (limit "
+          f"{tol:.3e})")
+    if vs_plain["max_abs_err"] > tol:
+        fail(f"long-context engine logits, kernel vs plain: {vs_plain['max_abs_err']:.3e} "
+             f"> {tol:.3e}")
+    if vs_plain["steps"] < MIN_STEPS_SHARED * vs_plain["of"]:
+        fail(f"long-context engine: only {vs_plain['steps']} of {vs_plain['of']} steps on "
+             f"a shared token history")
+    return {"metrics": m, "launches": launches, "bodies": bodies, "s_cap": s_cap,
+            "plan": plan._asdict(), "distinct_tokens_per_stream": distinct,
+            "kv_decode_on_engine_inputs": shadow, "kernel_vs_plain_int8": vs_plain,
+            "logits_limit": tol}
 
 
 def grouped_plain(ref, x, wp, s, bits):
@@ -979,7 +1242,8 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
     m = eng.metrics()
     edistinct = sorted(len(set(t)) for t in _tokens(eng).values())
     print(f"[moe engine] kernel launches {elaunch}, grouped bodies "
-          f"{ebodies['qmatmul_grouped']}; {m['tokens_generated']} tokens "
+          f"{ebodies['qmatmul_grouped']}, kv_decode entries {ebodies['kv_decode_entry']}; "
+          f"{m['tokens_generated']} tokens "
           f"in {m['wall_s']:.2f}s ({m['sustained_tok_s']:.1f} tok/s sustained), "
           f"occupancy {m['mean_slot_occupancy']:.3f}, resident KV "
           f"{m['mean_resident_kv_bytes_per_stream']:.0f} B/stream; distinct "
@@ -988,6 +1252,9 @@ def phase_moe_serve(torch, serve, kernels, workdir: Path) -> dict:
         fail(f"the MoE engine did not launch every kernel: {elaunch}")
     if ebodies["qmatmul_grouped"]["gemv"] or ebodies["qgemv"]["gemv"]:
         fail(f"the MoE engine left the tensor-core decode body: {ebodies}")
+    if ebodies["kv_decode_entry"]["paged"] != elaunch["kv_decode"]:
+        fail(f"the MoE engine's decode reads did not all take the paged entry: "
+             f"{ebodies['kv_decode_entry']}")
     four = streams[:4]
     stag = _engine(serve, model, art, args, four, "cuda")
     seq = _engine(serve, model, art, args, four, "cuda", sequential=True)
@@ -1232,14 +1499,19 @@ def _layer(rows, shapes, **sel) -> dict:
     return tot
 
 
-def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq) -> dict:
+def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
+                long_engine) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
     for qgemv, the prefill chunk's M=32 for qmatmul, and the fixed batch's
     M=512 as added fields), summed over the layer's shapes; qmatmul_grouped
     likewise per MoE layer at M 8 and, as added fields, M 64. For
-    kv_decode: one call at the engine's decode shape. ``body_launches``:
+    kv_decode: one call of the paged entry at the engine's decode shape, and
+    as added fields the dense entry at that shape, at long caches and at hd
+    120, and the launches by entry and by split on the engine and
+    long-context engine paths.
+    ``body_launches``:
     the main path's launches of each body. ``bound_ms`` follows the
     arithmetic of the body that ran (bytes against three bf16 passes for
     the decode body, two TF32 or three bf16 passes for the tiles);
@@ -1266,16 +1538,32 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq) -> dict
             entry.update({f"m512_{k}": big[k] for k in (*TIMED_KEYS, "bound_by")})
             entry["m512_body"] = big["bodies"]
         out.append(entry)
-    t = kv_timed["engine"]
-    out.append({
+    t = kv_timed["paged"]
+    kv = {
         "name": "kv_decode", "route": "cuda",
         "source": "src/repro_torch/kernels/kvattn/csrc/kvattn.cu",
         "replaces": "src/repro/kernels/kvattn/kernel.py:70",
         "launches": launches["kv_decode"], "max_abs_err": kv_err,
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-        "body": t["body"], "body_launches": bodies["kv_decode"],
-        "shapes": f"B={t['B']} H={t['H']} K={t['K']} hd={t['hd']} S={t['S']}"})
+        "body": t["body"], "split": t["split"], "body_launches": bodies["kv_decode"],
+        "entry_launches": bodies["kv_decode_entry"],
+        "split_launches": bodies["kv_decode_split"],
+        "gather_dense_ms": t["gather_dense_ms"],
+        "shapes": f"B={t['B']} H={t['H']} K={t['K']} hd={t['hd']} S={t['S']} in pages of "
+                  f"{t['page_size']}, two idle rows: the paged entry the engine takes "
+                  f"(gather_dense_ms: the gather + casts + dense kernel it replaced); "
+                  f"dense_* the dense entry at the same shape, s1024_*/s2048_*/long_* "
+                  f"at S 1024/2048/4096 and hd120_* at H 32 over K 8 of 120 the dense "
+                  f"entry"}
+    for label in ("engine", "s1024", "s2048", "long", "hd120"):
+        prefix = "dense" if label == "engine" else label
+        kv.update({f"{prefix}_{k}": kv_timed[label][k]
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms", "split")})
+    kv.update({"long_engine_launches": long_engine["launches"]["kv_decode"],
+               "long_engine_entry_launches": long_engine["bodies"]["kv_decode_entry"],
+               "long_engine_split_launches": long_engine["bodies"]["kv_decode_split"]})
+    out.append(kv)
     dec = _layer(moe["rows"], MOE_SHAPES, M=8)
     pre = _layer(moe["rows"], MOE_SHAPES, M=64)
     entry = {
@@ -1344,6 +1632,7 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, served = phase_serve(torch, kernel, ops, serve, Path(tmp))
         (launches, bodies), engine = phase_engine(torch, serve, kernels, Path(tmp))
+        long_engine = phase_engine_long(torch, serve, kernels, Path(tmp))
         moe = phase_moe_serve(torch, serve, kernels, Path(tmp))
         fq_err, fq_rows = phase_fq_kernel(torch, fq_kernel, fq_ref)
         calib = phase_calib(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
@@ -1352,7 +1641,8 @@ def main(argv=None) -> None:
                        {"err": moe_err, "rows": moe_rows,
                         "launches": moe["fixed"]["launches"],
                         "bodies": moe["fixed"]["bodies"]},
-                       {"err": fq_err, "rows": fq_rows, "launches": calib["launches"]})
+                       {"err": fq_err, "rows": fq_rows, "launches": calib["launches"]},
+                       long_engine)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -1363,7 +1653,8 @@ def main(argv=None) -> None:
         Path(args.json).write_text(json.dumps(
             {"device": device, "nvidia_smi": smi, "build": build,
              "timings": rows, "kv_timings": kv_timed, "host": host,
-             "serve": served, "engine": engine, "moe_timings": moe_rows,
+             "serve": served, "engine": engine, "engine_long": long_engine,
+             "moe_timings": moe_rows,
              "moe": moe, "fakequant_timings": fq_rows, "calib": calib,
              "kernels": line["kernels"],
              "wall_s": time.perf_counter() - t_start}, indent=1))

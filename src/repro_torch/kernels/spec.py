@@ -37,6 +37,28 @@ KV_BODIES = {"v16": 16, "v8": 8}  # body -> bytes a load
 SM_COUNT = 132
 SMEM_PER_BLOCK = 232_448
 
+# kv_decode's launch (csrc/kvattn.cu mirrors these): blocks of 4 or 8
+# warps (KV_WARPS), each warp on its own tiles of KV_TILE slots (a lane
+# each) through its own cp.async ring of KV_STAGES tiles, K rows padded by
+# KV_KPAD[body] bytes; a block keeps at most KV_BLOCK_VALUES query values (rows * hd), so a
+# kv head whose G rows hold more takes several blocks; S splits over a
+# cluster of up to KV_SPLITS[-1] blocks; a lane keeps KV_UNITS float4
+# accumulators.
+KV_WARPS = (4, 8)
+KV_TILE = 32
+KV_STAGES = 2
+KV_KPAD = {"v16": 16, "v8": 0}
+KV_BLOCK_VALUES = 1024
+KV_SPLITS = (1, 2, 4, 8)
+KV_UNITS = (1, 2, 4, 8)
+# A block takes 8 warps for a cache of at least KV_WIDE_TILES tiles where two
+# such blocks fit an SM, else 4; S is split over a cluster until the grid
+# holds KV_TARGET_BLOCKS blocks, as long as each warp keeps KV_MIN_TILES
+# tiles.
+KV_WIDE_TILES = 16
+KV_TARGET_BLOCKS = SM_COUNT
+KV_MIN_TILES = 4
+
 # The tensor-core tiles of qmatmul / qmatmul_grouped (csrc/qmatmul.cu
 # mirrors them): name -> (BM, BN, threads, ring stages). "short" (M <= 32)
 # is mma.sync m16n8k8 TF32 (x in two passes), 4 warps each on every fourth
@@ -309,33 +331,38 @@ def describe_kv_decode(q_shape, k8_shape, v8_shape=None, kscale_shape=None,
     """Validate a ``kv_decode`` (int8-KV decode attention) launch: q (B, H,
     hd) over int8 caches (B, S, K, hd) with scales (B, S, K), kpos (B, S)
     and cur (B,); the shapes given beyond q and k8 are checked against
-    them. Any S works (the kernel masks the ragged tail)."""
+    them. Any S works (the kernel masks the ragged tail). Conditions are
+    tested before any message is formatted: this runs on every launch."""
     name = "kv_decode"
     if len(q_shape) != 3 or len(k8_shape) != 4:
         raise KernelSpecError(f"{name}: q {tuple(q_shape)} must be (B, H, hd) and "
                               f"the cache {tuple(k8_shape)} (B, S, K, hd)")
     B, H, hd = q_shape
     S, K = k8_shape[1], k8_shape[2]
-    _check(K > 0 and H % K == 0, name,
-           f"query heads H={H} not divisible into kv heads K={K} "
-           f"(q {tuple(q_shape)}, cache {tuple(k8_shape)})")
+    if not (K > 0 and H % K == 0):
+        raise KernelSpecError(f"{name}: query heads H={H} not divisible into kv heads "
+                              f"K={K} (q {tuple(q_shape)}, cache {tuple(k8_shape)})")
     G = H // K
-    _check(tuple(k8_shape) == (B, S, K, hd), name,
-           f"cache {tuple(k8_shape)} does not match q {tuple(q_shape)}")
-    _check(B >= 1 and S >= 1, name, f"empty launch: q {tuple(q_shape)}, "
-           f"cache {tuple(k8_shape)}")
-    _check(hd % 8 == 0 and 16 <= hd <= KV_HD_MAX, name,
-           f"head dim hd={hd} must be a multiple of 8 in 16..{KV_HD_MAX}: the "
-           f"kernel reads a row of int8 codes in 8- or 16-byte vectors")
-    _check(G <= KV_G_MAX, name,
-           f"G = H/K = {G} query rows per kv head; the kernel takes at most "
-           f"{KV_G_MAX} (q {tuple(q_shape)}, cache {tuple(k8_shape)})")
+    if tuple(k8_shape) != (B, S, K, hd):
+        raise KernelSpecError(f"{name}: cache {tuple(k8_shape)} does not match q "
+                              f"{tuple(q_shape)}")
+    if not (B >= 1 and S >= 1):
+        raise KernelSpecError(f"{name}: empty launch: q {tuple(q_shape)}, cache "
+                              f"{tuple(k8_shape)}")
+    if not (hd % 8 == 0 and 16 <= hd <= KV_HD_MAX):
+        raise KernelSpecError(f"{name}: head dim hd={hd} must be a multiple of 8 in "
+                              f"16..{KV_HD_MAX}: the kernel reads a row of int8 codes in "
+                              f"8- or 16-byte vectors")
+    if G > KV_G_MAX:
+        raise KernelSpecError(f"{name}: G = H/K = {G} query rows per kv head; the kernel "
+                              f"takes at most {KV_G_MAX} (q {tuple(q_shape)}, cache "
+                              f"{tuple(k8_shape)})")
     for what, got, want in (("v8", v8_shape, (B, S, K, hd)),
                             ("kscale", kscale_shape, (B, S, K)),
                             ("vscale", vscale_shape, (B, S, K)),
                             ("kpos", kpos_shape, (B, S)), ("cur", cur_shape, (B,))):
-        _check(got is None or tuple(got) == want, name,
-               f"{what} {tuple(got or ())} should be {want}")
+        if got is not None and tuple(got) != want:
+            raise KernelSpecError(f"{name}: {what} {tuple(got)} should be {want}")
     return {"B": B, "H": H, "K": K, "G": G, "S": S, "hd": hd,
             "body": kv_decode_body(hd)}
 
@@ -344,6 +371,104 @@ def kv_decode_body(hd: int) -> str:
     """``kv_decode``'s body for head dim ``hd`` (a multiple of 8): 16-byte
     loads of codes ("v16") when hd % 16 == 0, else 8-byte loads ("v8")."""
     return "v16" if hd % 16 == 0 else "v8"
+
+
+def describe_kv_decode_paged(q_shape, kp_shape, vp_shape, ks_shape, vs_shape,
+                             bt_shape, cur_shape, page_size: int) -> dict:
+    """Validate a paged ``kv_decode`` launch: q (B, H, hd) over the pool's
+    codes (num_pages, page_size, K, hd) and scales (num_pages, page_size,
+    K) through block tables (B, max_pages), cur (B,). The dense view it
+    reads has S = max_pages * page_size slots; :func:`describe_kv_decode`'s
+    contract holds for it."""
+    name = "kv_decode_paged"
+    if len(kp_shape) != 4 or len(bt_shape) != 2:
+        raise KernelSpecError(f"{name}: pool {tuple(kp_shape)} must be (pages, "
+                              f"page_size, K, hd) and block tables {tuple(bt_shape)} "
+                              f"(B, max_pages)")
+    P, ps, K, hd = kp_shape
+    B, mp = bt_shape
+    if not (ps == page_size and P >= 1 and mp >= 1):
+        raise KernelSpecError(f"{name}: pool {tuple(kp_shape)} does not hold pages of "
+                              f"{page_size} slots, or the block tables {tuple(bt_shape)} "
+                              f"are empty")
+    for what, got, want in (("v_pages", vp_shape, (P, ps, K, hd)),
+                            ("k_scale", ks_shape, (P, ps, K)),
+                            ("v_scale", vs_shape, (P, ps, K))):
+        if tuple(got) != want:
+            raise KernelSpecError(f"{name}: {what} {tuple(got)} should be {want}")
+    if len(q_shape) != 3 or q_shape[0] != B:
+        raise KernelSpecError(f"{name}: q {tuple(q_shape)} and block tables "
+                              f"{tuple(bt_shape)} disagree on B")
+    sp = describe_kv_decode(q_shape, (B, mp * ps, K, hd), cur_shape=cur_shape)
+    sp.update(pages=P, page_size=ps, max_pages=mp)
+    return sp
+
+
+class KvPlan(NamedTuple):
+    """Launch plan of one kv_decode call (either entry)."""
+    body: str     # "v16" / "v8": the load unit of codes
+    warps: int    # warps a block, each on a contiguous share of the block's tiles
+    split: int    # blocks of a cluster, each on a contiguous share of whole tiles
+    rows: int     # query rows a block keeps (of a kv head's G)
+    chunks: int   # blocks over one kv head's G rows, ceil(G / rows)
+    units: int    # float4 accumulators a lane keeps
+    blocks: int
+
+
+@functools.lru_cache(maxsize=4096)
+def kv_smem(rows: int, hd: int, warps: int, page_size: int = 0) -> int:
+    """Dynamic shared memory of one kv_decode block, as the kernel lays it
+    out (``make_layout``): q rows (later the block's accumulator) and the
+    block's m and l, then for each warp its p * vs (rows, KV_TILE), its m,
+    l and corr, the paged entry's page numbers (2 * (KV_STAGES - 1) + 1 tiles
+    of (KV_TILE - 1) // page_size + 2 entries) and its ring of stages: K
+    rows padded by KV_KPAD, V rows, K and V scales (a 32-bit word a slot)
+    and the dense entry's kpos; at least 32 float4 partials and the warp's
+    accumulator."""
+    a16 = lambda x: (x + 15) & ~15  # noqa: E731
+    pad = KV_KPAD[kv_decode_body(hd)]
+    stage = KV_TILE * (2 * hd + pad + (8 if page_size else 12))
+    pages = (2 * (KV_STAGES - 1) + 1) * ((KV_TILE - 1) // page_size + 2) if page_size else 0
+    ring = max(KV_STAGES * stage, 32 * 16 + rows * hd * 4)
+    warp = rows * KV_TILE * 4 + 3 * KV_G_MAX * 4 + a16(pages * 4) + a16(ring)
+    return a16(rows * hd * 4) + 2 * KV_G_MAX * 4 + warps * warp
+
+
+def kv_plan(hd: int, G: int, warps: int, split: int, B: int = 1, K: int = 1) -> KvPlan:
+    """The KvPlan of these choices: the rows a block keeps (all G up to
+    KV_BLOCK_VALUES values of q) and the accumulators a lane needs."""
+    rows = min(G, KV_BLOCK_VALUES // hd)
+    chunks = _ceil(G, rows)
+    units = next(u for u in KV_UNITS if 128 * u >= rows * hd)
+    return KvPlan(kv_decode_body(hd), warps, split, rows, chunks, units, B * K * chunks * split)
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_kv_decode(B: int, K: int, S: int, hd: int, G: int = 1) -> KvPlan:
+    """Plan kv_decode over (B, S, K, hd) caches with G query rows a kv head
+    from the shapes alone (never the page size or the data), so the dense
+    and paged entries of one shape take the same plan and sum in the same
+    order. 8 warps a block for at least KV_WIDE_TILES tiles where two such
+    blocks fit an SM, else 4; S is split over a cluster of 2, 4 or 8 blocks
+    until the grid holds KV_TARGET_BLOCKS, as long as each warp keeps
+    KV_MIN_TILES tiles, so each block's share is at least one tile (no share
+    is empty)."""
+    _check(min(B, K, S, G) >= 1 and hd % 8 == 0 and 16 <= hd <= KV_HD_MAX, "kv_decode",
+           f"no plan for B={B} K={K} S={S} hd={hd} G={G}")
+    tiles = _ceil(S, KV_TILE)
+    rows = kv_plan(hd, G, KV_WARPS[1], 1).rows
+    wide = tiles >= KV_WIDE_TILES and 2 * kv_smem(rows, hd, KV_WARPS[1], 1) <= SMEM_PER_BLOCK
+    warps = KV_WARPS[1] if wide else KV_WARPS[0]
+    blocks = kv_plan(hd, G, warps, 1, B, K).blocks
+    split = 1
+    while (blocks * split < KV_TARGET_BLOCKS and 2 * split <= KV_SPLITS[-1]
+           and tiles >= 2 * split * warps * KV_MIN_TILES):
+        split *= 2
+    plan = kv_plan(hd, G, warps, split, B, K)
+    smem = kv_smem(plan.rows, hd, warps, 1)
+    _check(smem <= SMEM_PER_BLOCK, "kv_decode",
+           f"{smem} B of shared memory per block > {SMEM_PER_BLOCK}")
+    return plan
 
 
 def describe_fakequant(w_shape, scale_shape) -> dict:

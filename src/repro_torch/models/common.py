@@ -21,6 +21,8 @@ from typing import Any, Optional
 
 import torch
 
+from ..kernels.kvattn.ref import paged_view
+
 Params = Any
 
 
@@ -351,7 +353,8 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 #
 # ``kv_dtype='int8'`` stores codes + per-(token, head) scales from
 # ``kernels.kvattn.quantize_kv`` and decodes single-token steps through
-# ``kernels.kvattn.attend_int8`` (the ``kv_decode`` kernel on the card);
+# ``kernels.kvattn.attend_int8_paged`` (on the card, the ``kv_decode``
+# kernel's paged entry, which reads the pool through the block tables);
 # float dtypes are the reference mode. Scales are stored float16, as in the
 # JAX package: the resident-bytes win is the point of int8 KV.
 
@@ -436,30 +439,6 @@ def paged_append(cache: Params, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
-def paged_view(cache: Params, block_tables: torch.Tensor, page_size: int):
-    """Gather a dense per-stream view of the pool.
-
-    Returns ``(gather, kpos)``: ``gather(pool)`` -> (B, S_cap, K, hd) with
-    token ``t`` at row ``t`` (S_cap = max_pages * page_size), and ``kpos``
-    (B, S_cap) int32: the row's token position where the row's page is
-    allocated, -1 elsewhere (rows of an allocated page beyond the stream's
-    written length are masked by the caller's ``<= cur`` check)."""
-    B, mp = block_tables.shape
-    s_cap = mp * page_size
-    offs = torch.arange(page_size, dtype=block_tables.dtype,
-                        device=block_tables.device)
-    rows = (block_tables.clamp_min(0)[..., None] * page_size + offs)
-    rows = rows.reshape(B, s_cap).long()
-
-    def gather(pool):
-        return _flat(pool)[rows]
-
-    allocated = (block_tables >= 0).repeat_interleave(page_size, dim=1)
-    iota = torch.arange(s_cap, dtype=torch.int32, device=block_tables.device)
-    kpos = torch.where(allocated, iota[None], -1)
-    return gather, kpos
-
-
 def paged_attend(q: torch.Tensor, cache: Params, block_tables: torch.Tensor,
                  positions: torch.Tensor, page_size: int, *,
                  window: Optional[int] = None,
@@ -468,22 +447,23 @@ def paged_attend(q: torch.Tensor, cache: Params, block_tables: torch.Tensor,
 
     q: (B, C, H, hd); positions (B, C) absolute positions of the query
     tokens (already appended). Single-token int8 decode goes through
-    ``attend_int8`` (``backend`` picks the kernel or the plain version);
-    chunked-prefill reads (C > 1) and float pools dequantize the gathered
-    view and share :func:`decode_attend`.
+    ``attend_int8_paged`` before any gather (``backend`` picks the kernel,
+    which reads the pool through the block tables, or the plain version
+    over the gathered view); chunked-prefill reads (C > 1) and float pools
+    dequantize the gathered view and share :func:`decode_attend`.
     """
+    if "k_scale" in cache and q.shape[1] == 1:
+        from ..kernels.kvattn.ops import attend_int8_paged
+
+        out = attend_int8_paged(q[:, 0].contiguous(), cache, block_tables,
+                                positions[:, 0].contiguous(), page_size,
+                                window=window, backend=backend)
+        return out[:, None]
     gather, kpos = paged_view(cache, block_tables, page_size)
     if "k_scale" in cache:
         k8, v8 = gather(cache["k_pages"]), gather(cache["v_pages"])
         ks = gather(cache["k_scale"]).to(torch.float32)
         vs = gather(cache["v_scale"]).to(torch.float32)
-        if q.shape[1] == 1:
-            from ..kernels.kvattn.ops import attend_int8
-
-            out = attend_int8(q[:, 0].contiguous(), k8, v8, ks, vs, kpos,
-                              positions[:, 0].contiguous(), window=window,
-                              backend=backend)
-            return out[:, None]
         k = (k8.to(torch.float32) * ks[..., None]).to(q.dtype)
         v = (v8.to(torch.float32) * vs[..., None]).to(q.dtype)
         return decode_attend(q, k, v, kpos, positions, window=window)

@@ -95,7 +95,7 @@ class EngineConfig:
     max_len: int = 256            # hard cap on prompt + generated per stream
     prefill_chunk: int = 32
     kv_dtype: str = "int8"        # member of models.common.PAGED_KV_DTYPES
-    backend: str = "auto"         # attend_int8 backend for the int8 decode read
+    backend: str = "auto"         # attend_int8_paged backend for the int8 decode read
     record_logits: bool = False   # keep per-step decode logits (tests only)
     overcommit: str = "none"      # 'none' (worst-case reserve) | 'prompt'
     overcommit_headroom: int = 1  # pages reserved beyond the prompt

@@ -1,6 +1,6 @@
-"""The CUDA kernels (qgemv, qmatmul, qmatmul_grouped, kv_decode, fakequant)
-against their plain PyTorch versions, on the card, and the serve engine's,
-the MoE layer's and the calibration's kernel paths.
+"""The CUDA kernels (qgemv, qmatmul, qmatmul_grouped, kv_decode and its paged
+entry, fakequant) against their plain PyTorch versions, on the card, and the
+serve engine's, the MoE layer's and the calibration's kernel paths.
 
 The kernels have no CPU mode, so every test here is marked
 ``requires_cuda`` and skips without a GPU. This file imports neither JAX
@@ -11,7 +11,8 @@ nor the JAX package, so it runs on a machine that has only PyTorch:
 Tolerance: 1e-4 * max|ref| + 1e-5 (f32 sums taken in another order; the
 tensor-core bodies' split of x, hi + lo in TF32 or three bf16 parts, adds
 below 2^-21 relative per product); fakequant: hard bit for bit, soft
-within 1e-6 * max|ref|.
+within 1e-6 * max|ref|; kv_decode's paged entry equals the dense entry on
+the gathered view bit for bit.
 """
 import numpy as np
 import pytest
@@ -463,6 +464,161 @@ def test_kv_decode_rejects_bad_operands(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         kv_kernel.kv_decode(q.transpose(0, 1).contiguous().transpose(0, 1),
                             k8, v8, ks, vs, kpos, cur)
+
+
+# --- kv_decode's paged entry and its split of S ---------------------------------
+
+
+def paged_case(B, H, K, hd, ps, mp, device, *, seed=0, holes=False, idle=0):
+    """An int8 pool as the engine stores it (codes from quantize_kv of
+    random f32 K/V, float16 scales; 1 + B * mp pages, page 0 the sink), block
+    tables giving stream b the pages of positions 0..cur_b, shuffled, -1
+    beyond (``holes``: about a third of them -1; the first ``idle`` rows all
+    -1), q and cur in [S/4, S); and the dense view paged_view gathers."""
+    from repro_torch.kernels.kvattn.ref import paged_view
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    P, S = 1 + B * mp, mp * ps
+    k8, v8, ks, vs = kv_ops.quantize_kv(
+        t(rng.standard_normal((P, ps, K, hd)).astype(np.float32)),
+        t(rng.standard_normal((P, ps, K, hd)).astype(np.float32)))
+    pool = {"k_pages": k8, "v_pages": v8, "k_scale": ks.half(), "v_scale": vs.half()}
+    cur = rng.integers(S // 4, S, size=(B,)).astype(np.int32)
+    bt = (1 + rng.permutation(P - 1)).reshape(B, mp).astype(np.int32)
+    bt[np.arange(mp)[None] > (cur // ps)[:, None]] = -1
+    if holes:
+        bt[rng.random((B, mp)) < 0.3] = -1
+    bt[:idle] = -1
+    q = t(rng.standard_normal((B, H, hd)).astype(np.float32))
+    bt, cur = t(bt), t(cur)
+    gather, kpos = paged_view(pool, bt, ps)
+    dense = (q, gather(k8), gather(v8), gather(pool["k_scale"]).float(),
+             gather(pool["v_scale"]).float(), kpos, cur)
+    return (q, pool["k_pages"], pool["v_pages"], pool["k_scale"], pool["v_scale"], bt,
+            cur), dense
+
+
+# (B, H, K, hd, page_size, max_pages, holes, idle rows): the engine's decode
+# shape with two idle slots, GQA with holes, hd 120 (G 4), its long-context
+# shape (S 2048), and a page size that does not divide the kernel's tile
+PAGED_CASES = [(8, 12, 12, 64, 16, 6, False, 2), (3, 8, 2, 64, 4, 9, True, 1),
+               (2, 32, 8, 120, 16, 5, True, 0), (4, 12, 12, 64, 16, 128, False, 1),
+               (3, 4, 1, 120, 5, 40, True, 1)]
+
+
+@pytest.mark.parametrize("B,H,K,hd,ps,mp,holes,idle", PAGED_CASES)
+@pytest.mark.parametrize("split", [None, 1, 2])
+def test_kv_decode_paged_equals_dense_on_gathered_view(cuda, B, H, K, hd, ps, mp, holes,
+                                                       idle, split):
+    """The paged entry computes the dense kernel on the view paged_view
+    gathers, bit for bit, under one plan (its own, or a forced split)."""
+    paged, dense = paged_case(B, H, K, hd, ps, mp, cuda, holes=holes, idle=idle)
+    plan = None if split is None else spec.kv_plan(hd, H // K, 4, split)
+    kv_kernel.reset_launches()
+    got = kv_kernel.kv_decode_paged(*paged, page_size=ps, plan=plan)
+    ref = kv_kernel.kv_decode(*dense, plan=plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    check(got, kv_decode_ref(*dense))
+    assert kv_kernel.ENTRY_LAUNCHES["kv_decode"] == {"dense": 1, "paged": 1}
+    assert kv_kernel.LAUNCHES["kv_decode"] == 2
+
+
+@pytest.mark.parametrize("B,H,K,hd,S,window,holes", [(2, 8, 2, 64, 700, None, False),
+                                                     (2, 32, 8, 120, 300, 64, True),
+                                                     (3, 12, 12, 64, 2048, None, True)])
+def test_kv_decode_every_plan_matches_plain(cuda, B, H, K, hd, S, window, holes):
+    """Splits 1, 2, 4 and 8 and blocks of 4 and 8 warps all stay within the
+    tolerance of the plain version."""
+    args = kv_case(B, H, K, hd, S, cuda, holes=holes)
+    want = kv_decode_ref(*args, window=window)
+    kv_kernel.reset_launches()
+    runs = 0
+    for warps in spec.KV_WARPS:
+        for split in spec.KV_SPLITS:
+            plan = spec.kv_plan(hd, H // K, warps, split)
+            check(kv_kernel.kv_decode(*args, window=window, plan=plan), want)
+            runs += 1
+    assert kv_kernel.SPLIT_LAUNCHES["kv_decode"] == {s: runs // 4 for s in spec.KV_SPLITS}
+
+
+def test_kv_decode_paged_is_deterministic(cuda):
+    paged, _ = paged_case(8, 12, 12, 64, 16, 128, cuda, holes=True, idle=1)
+    assert spec.plan_kv_decode(8, 12, 2048, 64).split > 1
+    a = kv_kernel.kv_decode_paged(*paged, page_size=16)
+    b = kv_kernel.kv_decode_paged(*paged, page_size=16)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_engine_decode_reads_the_pool_without_gather(cuda, monkeypatch):
+    """On the card an int8-pool engine's decode steps go through the paged
+    entry and never gather the pool (paged_view raises inside a decode
+    step); its chunked-prefill reads keep the gathered view."""
+    from repro_torch.deploy import rtn_artifact
+    from repro_torch.models import common as cm
+    from repro_torch.models import get_model
+    from repro_torch.serve_engine import EngineConfig, ServeEngine
+
+    cfg, model = get_model("brecq_lm_100m", reduced=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    eng = ServeEngine(model, rtn_artifact(params, 4, None, cfg=cfg).params, EngineConfig(
+        num_slots=3, page_size=4, num_pages=49, max_len=32, prefill_chunk=16))
+    eng.compile()
+    state = {"decoding": False, "gathers": 0}
+    orig_view, orig_decode = cm.paged_view, eng._decode_c
+
+    def view(*a, **kw):
+        if state["decoding"]:
+            raise AssertionError("an int8 decode step gathered the pool")
+        state["gathers"] += 1
+        return orig_view(*a, **kw)
+
+    def decode(*a, **kw):
+        state["decoding"] = True
+        try:
+            return orig_decode(*a, **kw)
+        finally:
+            state["decoding"] = False
+
+    monkeypatch.setattr(cm, "paged_view", view)
+    monkeypatch.setattr(kv_ops, "paged_view", view)
+    eng._decode_c = decode
+    kv_kernel.reset_launches()
+    rng = np.random.default_rng(11)
+    for uid, n in enumerate((5, 13, 9)):
+        eng.submit(rng.integers(0, cfg.vocab, size=n), 6, uid=uid)
+    eng.run()
+    assert all(r.state == "done" for r in eng.requests.values())
+    entries = kv_kernel.ENTRY_LAUNCHES["kv_decode"]
+    assert entries["paged"] > 0 and entries["dense"] == 0
+    assert state["gathers"] > 0  # the prefill chunks' reads
+
+
+def test_kv_decode_paged_rejects_bad_pools(cuda):
+    paged, _ = paged_case(2, 8, 2, 64, 4, 3, cuda)
+    q, kp, vp, ks, vs, bt, cur = paged
+    before = kv_kernel.LAUNCHES["kv_decode"]
+    with pytest.raises(TypeError, match="float16"):
+        kv_kernel.kv_decode_paged(q, kp, vp, ks.float(), vs, bt, cur, page_size=4)
+    with pytest.raises(TypeError, match="int32"):
+        kv_kernel.kv_decode_paged(q, kp, vp, ks, vs, bt.long(), cur, page_size=4)
+    off = torch.cat([kp.reshape(-1)[:4], kp.reshape(-1)])[4:].reshape(kp.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        kv_kernel.kv_decode_paged(q, off, vp, ks, vs, bt, cur, page_size=4)
+    off = torch.cat([ks.reshape(-1)[:1], ks.reshape(-1)])[1:].reshape(ks.shape)
+    with pytest.raises(ValueError, match="4-byte aligned"):
+        kv_kernel.kv_decode_paged(q, kp, vp, off, vs, bt, cur, page_size=4)
+    with pytest.raises(spec.KernelSpecError, match="page"):
+        kv_kernel.kv_decode_paged(q, kp, vp, ks, vs, bt, cur, page_size=8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kv_kernel.kv_decode_paged(q.cpu(), kp, vp, ks, vs, bt, cur, page_size=4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        kv_ops.attend_int8_paged(q.cpu(), {"k_pages": kp.cpu(), "v_pages": vp.cpu(),
+                                           "k_scale": ks.cpu(), "v_scale": vs.cpu()},
+                                 bt.cpu(), cur.cpu(), 4, backend="cuda")
+    assert kv_kernel.LAUNCHES["kv_decode"] == before
 
 
 def test_engine_kernel_path_on_card(cuda):
