@@ -69,13 +69,35 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              sequences; export, save, load (weights equal to params_q bit
              for bit) and serve the artifact through the fixed batch
              (W2 packed, plain path replays the tokens)
-  8. report  one JSON line of kernels (qmatmul at M 32 and, as added
+  8. mixed   BRECQ mixed precision on brecq-lm-100m at full width and
+             depth: W4 and W8 calibrations beside the W2 one; the sensitivity
+             table on 32 sequences (12 blocks x (21 diagonal + 21 pair
+             probes), every hardened forward through K5, shadowed); the exact
+             solver with storage groups under a bytes budget halfway between
+             all-W2 and all-W4, and without groups against the genetic search
+             (never worse); the calibrated mixed artifact (per-layer bits,
+             export) within its budget, with the containers of
+             ``rtn_mixed_artifact``, served through K1/K2 and replayed; then
+             ``serve.main --budget-decode-ms X --dispatch measured``, X midway
+             between the all-fastest and all-slowest assignment of a cost
+             table timed on K1/K2 (CUDA graph replays between CUDA events):
+             the solve within X, the measured dispatch installed and routing
+             the served matmuls, the logits replayed by the plain path
+  9. calib_moe  BRECQ W2 calibration of deepseek-moe-16b at full width, cut
+             to 4 layers (the dense layer + 3 MoE layers), 16 x 128 tokens, 50
+             iterations a block: every K5 call shadowed (bit for bit), its
+             launches on stacks of experts ((64*2048, 1408) views) counted
+             apart; BRECQ-W2 closer to FP than RTN-W2 on held-out logits;
+             export, verified load, fixed batch served through
+             qmatmul_grouped (M 64 prefill, M 8 decode) and replayed; K5 timed
+             at one expert leaf
+ 10. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
              64; the launches of each body on the main paths, for qgemv,
              qmatmul, qmatmul_grouped and kv_decode, whose launches are also
-             counted by entry and by split), the card's
-             name and power limit, and the final ``{"ok": true, "device":
-             ...}`` line
+             counted by entry and by split; the launches of the mixed and
+             calib_moe paths), the run's wall, the card's name and power
+             limit, and the final ``{"ok": true, "device": ...}`` line
 
 Exits non-zero on any failure, and when no CUDA device is available.
 
@@ -191,6 +213,12 @@ FQ_SHAPES = list(SLICE_SHAPES) + [(100, 300), (100, 301)]
 CALIB_SEQS, CALIB_LEN, CALIB_ITERS = 32, 128, 200
 HELDOUT_SEQS = 8
 MOE_ENGINE_STREAMS = 8
+# MoE calibration of deepseek-moe-16b at full width, cut to MOE_LAYERS: 16
+# sequences x 128 tokens, W2, 50 iterations per block, minibatch 8
+MOE_CALIB_SEQS, MOE_CALIB_ITERS = 16, 50
+# mixed precision on brecq-lm-100m: W4/W8 calibrations for the sensitivity
+# table, the table on 32 sequences, the per-layer-bits calibration
+SENS_ITERS, SENS_SEQS, MIXED_ITERS = 50, 32, 100
 
 
 def tolerance(ref) -> float:
@@ -1359,10 +1387,12 @@ def _shadowed_fq(torch, fq_kernel, fq_ref, log: dict):
     return orig, fn
 
 
-def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> dict:
+def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> tuple:
     """BRECQ calibration of brecq-lm-100m at full width and depth through
     ``repro_torch.core.quantize``, K5 launches counted and shadowed; the
-    quality gate; export, load and serve of the artifact."""
+    quality gate; export, load and serve of the artifact. Returns what the
+    ``mixed`` phase reuses (model, weights, the W2 result, batches) and the
+    phase's record."""
     from repro_torch.core import ReconConfig, adaround, quantize, reconstruction
     from repro_torch.data import Corpus, CorpusConfig, make_batches
     from repro_torch.deploy import QuantizedArtifact, dequant_leaf, export
@@ -1473,7 +1503,9 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> di
     keep = ("calib_wall_s", "fisher_wall_s", "calib_iters_per_s", "calib_peak_bytes",
             "calib_peak_bytes_detail", "unit_retries", "unit_fallbacks",
             "unit_oom_halvings", "unit_cache")
-    return {"launches": launches, "expected_launches": expect, "shadow": shadow,
+    reuse = {"model": model, "params": params, "res": res, "calib": calib,
+             "held": held, "prompts": prompts}
+    return reuse, {"launches": launches, "expected_launches": expect, "shadow": shadow,
             "stats": {k: st[k] for k in keep}, "device_peak_bytes": peak,
             "wall_s": wall, "logits_mse": mse,
             "units": [{k: u[k] for k in ("unit", "rtn_recon_mse", "final_recon_mse",
@@ -1482,6 +1514,415 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> di
                       for u in st["units"]],
             "serve": {"launches": served, "logits_max_abs_err": err,
                       "token_agreement": agree, "stats": sst}}
+
+
+def _fq_expected(model, res) -> tuple[int, int]:
+    """K5 launches of one ``quantize`` run (all, and those on stacks of
+    experts): each unit's hard forward at the RTN start and after every
+    try, then ``bake``'s one per weight with calibrated logits."""
+    from repro_torch.core.reconstruction import Walker
+
+    walker = Walker(model)
+    total = experts = 0
+    for u in res.stats["units"]:
+        if u.get("skipped"):
+            continue
+        tries = 2 + u["retries"]
+        for bi in u["unit"]:
+            prefix = walker.block_path(bi) + "/"
+            paths = [p for p in res.qstates if p.startswith(prefix)]
+            total += tries * len(paths)
+            experts += tries * sum(res.qstates[p][0].scale.ndim == 3 for p in paths)
+    return (total + len(res.v),
+            experts + sum(v.ndim == 3 for v in res.v.values()))
+
+
+def _logits_mse(torch, model, fp, held, params_q) -> float:
+    with torch.no_grad():
+        return float(torch.mean((model.forward(params_q, held)[0] - fp) ** 2))
+
+
+def _smi() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+
+
+def phase_calib_moe(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> dict:
+    """BRECQ W2 calibration of deepseek-moe-16b at full width (4 layers)
+    through ``repro_torch.core.quantize``: every K5 call shadowed, its
+    launches on stacks of experts counted apart; BRECQ against RTN on
+    held-out logits; export, verified load and a fixed batch served
+    through qmatmul_grouped, replayed by the plain path."""
+    from repro_torch.core import ReconConfig, adaround, quantize, reconstruction
+    from repro_torch.data import Corpus, CorpusConfig, make_batches
+    from repro_torch.deploy import QuantizedArtifact, export
+    from repro_torch.models import build_model, get_config
+
+    cfg = dataclasses.replace(get_config("deepseek_moe_16b"), n_layers=MOE_LAYERS)
+    model = build_model(cfg)
+    n_moe = MOE_LAYERS - cfg.moe.first_k_dense
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
+    calib = make_batches(corpus, MOE_CALIB_SEQS // 8, 8, CALIB_LEN, seed=1)
+    held = {k: t.cuda() for k, t in
+            make_batches(corpus, 1, HELDOUT_SEQS, CALIB_LEN, seed=2)[0].items()}
+    rc = ReconConfig(w_bits=2, iters=MOE_CALIB_ITERS, calib_bs=8)
+
+    shadow = {"calls": 0, "mismatches": 0}
+    orig, fq_kernel.fakequant = _shadowed_fq(torch, fq_kernel, fq_ref, shadow)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in (fq_kernel, qm_kernel):
+            k.reset_launches()
+        t0 = time.perf_counter()
+        res = quantize(model, params, calib, rc)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fq_kernel.LAUNCHES["fakequant"]
+        views = dict(fq_kernel.VIEW_LAUNCHES)
+        others = dict(qm_kernel.LAUNCHES)
+    finally:
+        fq_kernel.fakequant = orig
+    peak = torch.cuda.max_memory_allocated()
+    st = res.stats
+    expect, expect_experts = _fq_expected(model, res)
+    print(f"[calib_moe] {cfg.name} at full width, {MOE_LAYERS} layers ({n_moe} MoE, "
+          f"{cfg.moe.n_experts} experts of d_ff {cfg.moe.d_ff_expert}), W2, "
+          f"{MOE_CALIB_SEQS}x{CALIB_LEN} tokens, iters {rc.iters}, calib_bs "
+          f"{rc.calib_bs}: calib_wall_s {st['calib_wall_s']:.2f}, fisher_wall_s "
+          f"{st['fisher_wall_s']:.2f}, calib_iters_per_s {st['calib_iters_per_s']:.1f}, "
+          f"calib_peak_bytes {st['calib_peak_bytes']} (device peak {peak} B); wall "
+          f"{wall:.2f}s")
+    print(f"[calib_moe] fakequant launches {launches} (expected {expect}), on stacks "
+          f"of experts {views['experts']} (expected {expect_experts}); shadowed calls "
+          f"{shadow['calls']}, mismatches {shadow['mismatches']}; unit retries "
+          f"{st['unit_retries']}, fallbacks {st['unit_fallbacks']}, OOM halvings "
+          f"{st['unit_oom_halvings']}")
+    if launches != expect or views["experts"] != expect_experts or not expect_experts:
+        fail(f"MoE calibration launched fakequant {launches} times ({views}), expected "
+             f"{expect} ({expect_experts} on stacks of experts)")
+    if any(others.values()):
+        fail(f"MoE calibration launched packed-matmul kernels: {others}")
+    if shadow["mismatches"] or shadow["calls"] != launches:
+        fail(f"fakequant against its plain version during MoE calibration: {shadow}")
+    for u in st["units"]:
+        print(f"[calib_moe] unit {u['unit']}: {u['paths']} weights, rtn_recon_mse "
+              f"{u['rtn_recon_mse']:.4e} final_recon_mse {u['final_recon_mse']:.4e} "
+              f"loss {u['loss_first']:.4e} -> {u['loss_last']:.4e} retries "
+              f"{u['retries']} fallback {u['fallback']} opt_wall_s {u['opt_wall_s']:.2f}")
+
+    # quality gate on held-out sequences: logits MSE against FP
+    weights = reconstruction.enumerate_weights(
+        model, params, {"tokens": held["tokens"][:1]})
+    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
+    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
+    walker = reconstruction.Walker(model)
+
+    def hidden(p):  # the last block's output, before the final norm
+        x, ctx = walker.stem(p, held)
+        for bi in range(len(walker.blocks())):
+            x = walker.apply_block(p, bi, x, ctx)
+        return x
+
+    with torch.no_grad():
+        fp = model.forward(params, held)[0]
+        h_fp = hidden(params)
+        v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
+        rtn_params = reconstruction.bake(model, params, blocks, v_rtn, embed)
+        del v_rtn, weights
+        mse = {"brecq": _logits_mse(torch, model, fp, held, res.params_q),
+               "rtn": _logits_mse(torch, model, fp, held, rtn_params),
+               "fp_mean_square": float(torch.mean(fp ** 2)),
+               "hidden_brecq": float(torch.mean((hidden(res.params_q) - h_fp) ** 2)),
+               "hidden_rtn": float(torch.mean((hidden(rtn_params) - h_fp) ** 2)),
+               "hidden_fp_mean_square": float(torch.mean(h_fp ** 2))}
+    del rtn_params, fp, h_fp
+    print(f"[calib_moe] held-out logits MSE vs FP ({HELDOUT_SEQS}x{CALIB_LEN}): "
+          f"BRECQ-W2 {mse['brecq']:.4e}, RTN-W2 {mse['rtn']:.4e} (ratio "
+          f"{mse['brecq'] / mse['rtn']:.4f}; FP logits mean square "
+          f"{mse['fp_mean_square']:.4e}); last block's output MSE vs FP: BRECQ-W2 "
+          f"{mse['hidden_brecq']:.4e}, RTN-W2 {mse['hidden_rtn']:.4e} (ratio "
+          f"{mse['hidden_brecq'] / mse['hidden_rtn']:.4f}; FP mean square "
+          f"{mse['hidden_fp_mean_square']:.4e})")
+    if not all(math.isfinite(x) for x in mse.values()) or mse["brecq"] >= mse["rtn"]:
+        fail(f"MoE BRECQ-W2 logits are not closer to FP than RTN-W2's: {mse}")
+    if mse["hidden_brecq"] >= mse["hidden_rtn"]:
+        fail(f"MoE BRECQ-W2's last block output is not closer to FP than RTN-W2's: {mse}")
+
+    # export, save, verified load; serve the W2 artifact through K3
+    art_dir = workdir / "calib_moe_w2"
+    t0 = time.perf_counter()
+    export(model, res).save(str(art_dir))
+    del res, params
+    torch.cuda.empty_cache()
+    art = QuantizedArtifact.load(str(art_dir), verify=True).to("cuda")
+    serve._check_manifest(art.manifest, cfg)
+    print(f"[calib_moe] artifact {art.nbytes()} B exported, saved and loaded verified "
+          f"in {time.perf_counter() - t0:.1f}s")
+    prompts = corpus.sample(8, 64, seed=7)
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    (gen, sst), served, bodies = _counted({"qmatmul": qm_kernel}, lambda:
+                                          serve.run_prefill_decode(
+        model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
+        hook=art.hook(), tag="calib_moe W2"))
+    forwards = 2 + 32  # warm-up prefill and decode step, prefill, 31 decode steps
+    gb = bodies["qmatmul_grouped"]
+    if (served["qmatmul_grouped"] != 3 * n_moe * forwards or gb["tc"] != 3 * n_moe * 2
+            or gb["gemv_tc"] != 3 * n_moe * (forwards - 2)):
+        fail(f"serving the calibrated MoE artifact: qmatmul_grouped launches "
+             f"{served['qmatmul_grouped']}, bodies {gb}")
+    err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen,
+                                       "calib_moe W2")
+    print(f"[calib_moe serve] kernel launches {served}; grouped bodies {gb}; logits "
+          f"kernel vs plain: max abs err {err:.3e} (tol {tol:.3e}); greedy token "
+          f"agreement {agree:.4f}; prefill {sst['prefill_tok_s']:.1f} tok/s, decode "
+          f"{sst['tok_s']:.1f} tok/s")
+    del art
+    torch.cuda.empty_cache()
+    keep = ("calib_wall_s", "fisher_wall_s", "calib_iters_per_s", "calib_peak_bytes",
+            "calib_peak_bytes_detail", "unit_retries", "unit_fallbacks",
+            "unit_oom_halvings", "unit_cache")
+    return {"launches": launches, "expected_launches": expect,
+            "view_launches": views, "shadow": shadow,
+            "stats": {k: st[k] for k in keep}, "device_peak_bytes": peak,
+            "wall_s": wall, "logits_mse": mse,
+            "units": [{k: u[k] for k in ("unit", "paths", "rtn_recon_mse",
+                                         "final_recon_mse", "loss_first", "loss_last",
+                                         "retries", "fallback", "opt_wall_s")}
+                      for u in st["units"]],
+            "serve": {"launches": served, "bodies": bodies, "logits_max_abs_err": err,
+                      "token_agreement": agree, "stats": sst}}
+
+
+def _time_fq_experts(torch, fq_kernel, fq_ref) -> dict:
+    """K5's hardened forward at one deepseek-moe-16b expert leaf, (64,
+    2048, 1408) W2 with a scale shared across experts, as its (E*K, N)
+    view (the calibration's launch)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    e, (k, n) = MOE_E, next(iter(MOE_SHAPES))
+    w = torch.randn((e * k, n), generator=gen, device="cuda") * 0.02
+    v = torch.randn((e * k, n), generator=gen, device="cuda") * 2
+    s = torch.clamp_min(w.abs().amax(0, keepdim=True) / 1, 1e-8)
+    row = _time_fq(torch, fq_kernel, fq_ref, w, v, s, -2, 1)
+    del w, v
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_mixed(torch, fq_kernel, fq_ref, qm_kernel, serve, reuse: dict,
+                workdir: Path) -> dict:
+    """BRECQ mixed precision on brecq-lm-100m at full width and depth: W4 and
+    W8 calibrations beside the ``calib`` phase's W2; the sensitivity table
+    (every probe's hardened forward through K5, shadowed); the exact solver
+    under a bytes budget against the GA; the calibrated mixed artifact under
+    that budget, served through K1/K2; then ``serve --budget-decode-ms
+    --dispatch measured`` on a cost table timed from CUDA graph replays."""
+    import os
+
+    from repro_torch.core import ReconConfig, quantize
+    from repro_torch.core.mixed_precision import GAConfig, genetic_search
+    from repro_torch.core.sensitivity import measure
+    from repro_torch.deploy import QuantizedArtifact, code_layout, export
+    from repro_torch.deploy.budget import (CostTable, budget_artifact, install_dispatch,
+                                           measure_cost_table, rtn_mixed_artifact,
+                                           solve_budget, weight_shapes)
+    from repro_torch.interop import flatten_paths
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+
+    model, params, calib, held = (reuse[k] for k in ("model", "params", "calib", "held"))
+    cfg = model.cfg
+    batch = {"tokens": torch.from_numpy(reuse["prompts"]).cuda()}
+    results = {2: reuse["res"]}
+    shadow = {"calls": 0, "mismatches": 0}
+    launches: dict = {}
+    orig, fq_kernel.fakequant = _shadowed_fq(torch, fq_kernel, fq_ref, shadow)
+    try:
+        fq_kernel.reset_launches()
+        t0 = time.perf_counter()
+        for b in (4, 8):
+            results[b] = quantize(model, params, calib, ReconConfig(
+                w_bits=b, iters=SENS_ITERS, calib_bs=8))
+        torch.cuda.synchronize()
+        t_uniform = time.perf_counter() - t0
+        launches["uniform"] = fq_kernel.LAUNCHES["fakequant"]
+        want = sum(_fq_expected(model, results[b])[0] for b in (4, 8))
+        if launches["uniform"] != want:
+            fail(f"the W4/W8 calibrations launched fakequant {launches['uniform']} "
+                 f"times, expected {want}")
+
+        fq_kernel.reset_launches()
+        t0 = time.perf_counter()
+        sens = measure(model, params, calib, results, n_samples=SENS_SEQS)
+        torch.cuda.synchronize()
+        t_sens = time.perf_counter() - t0
+        launches["measure"] = fq_kernel.LAUNCHES["fakequant"]
+        want = sum(p in results[b].v for (p, b) in sens.diag) + sum(
+            (p1 in results[2].v) + (p2 in results[2].v) for p1, p2 in sens.offdiag)
+        n_blocks = cfg.n_layers
+        if (len(sens.diag) != n_blocks * 21 or len(sens.offdiag) != n_blocks * 21
+                or not all(math.isfinite(x) for x in
+                           (*sens.diag.values(), *sens.offdiag.values()))):
+            fail(f"the sensitivity table is incomplete or not finite: {len(sens.diag)} "
+                 f"diagonal, {len(sens.offdiag)} pair entries")
+        if launches["measure"] != want:
+            fail(f"measure launched fakequant {launches['measure']} times, expected "
+                 f"{want}")
+        print(f"[mixed] W4 and W8 calibrations ({SENS_ITERS} iterations a block) in "
+              f"{t_uniform:.2f}s; sensitivity table on {SENS_SEQS} sequences: "
+              f"{len(sens.diag)} diagonal + {len(sens.offdiag)} pair probes in "
+              f"{t_sens:.2f}s, fakequant launches {launches['measure']}")
+
+        # the exact solver under a bytes budget halfway between all-W2 and all-W4
+        lo = rtn_mixed_artifact(params, {p: 2 for p in sens.shapes}, cfg=cfg).nbytes()
+        hi = rtn_mixed_artifact(params, {p: 4 for p in sens.shapes}, cfg=cfg).nbytes()
+        budget = (lo + hi) // 2
+        rtn_art, sol, table = budget_artifact(params, sens, budget, kind="bytes", cfg=cfg)
+        code_budget = rtn_art.manifest["budget"]["solver_budget"]
+        free = solve_budget(sens, table, code_budget)
+        t0 = time.perf_counter()
+        _, ga = genetic_search(sens, table, code_budget, GAConfig())
+        t_ga = time.perf_counter() - t0
+        print(f"[mixed] bytes budget {budget} (all-W2 {lo}, all-W4 {hi}; codes "
+              f"{code_budget:.0f}): exact solver with storage groups {sol.to_json()['bits_histogram']} "
+              f"predicted loss {sol.predicted_loss:.6e}; without groups "
+              f"{free.predicted_loss:.6e} vs GA {ga['fitness']:.6e} (GA "
+              f"{GAConfig().iters} generations of {GAConfig().pop_size} in {t_ga:.2f}s)")
+        if free.predicted_loss > ga["fitness"] + 1e-9 * abs(ga["fitness"]):
+            fail(f"the exact solver's predicted loss {free.predicted_loss} is above the "
+                 f"GA's {ga['fitness']} at the same budget")
+
+        # the paper's route: per-layer bits -> quantize -> export -> serve
+        fq_kernel.reset_launches()
+        t0 = time.perf_counter()
+        res_m = quantize(model, params, calib, ReconConfig(
+            w_bits=2, iters=MIXED_ITERS, calib_bs=8, per_layer_bits=sol.assign))
+        torch.cuda.synchronize()
+        t_mixed = time.perf_counter() - t0
+        launches["mixed"] = fq_kernel.LAUNCHES["fakequant"]
+        if launches["mixed"] != _fq_expected(model, res_m)[0]:
+            fail(f"the mixed calibration launched fakequant {launches['mixed']} times, "
+                 f"expected {_fq_expected(model, res_m)[0]}")
+    finally:
+        fq_kernel.fakequant = orig
+    if shadow["mismatches"] or shadow["calls"] != sum(launches.values()):
+        fail(f"fakequant against its plain version in the mixed phase: {shadow}")
+    art_m = export(model, res_m)
+    shapes_of = lambda a: {k: (tuple(t.shape), t.dtype)  # noqa: E731
+                           for k, t in flatten_paths(a.params).items()}
+    if art_m.nbytes() > budget:
+        fail(f"the calibrated mixed artifact is {art_m.nbytes()} B over its "
+             f"{budget} B budget")
+    if (shapes_of(art_m) != shapes_of(rtn_art)
+            or art_m.manifest["bits_by_path"] != rtn_art.manifest["bits_by_path"]):
+        fail("the calibrated mixed artifact's containers differ from rtn_mixed_artifact's")
+    art_dir = workdir / "mixed_bytes"
+    art_m.save(str(art_dir))
+    art = QuantizedArtifact.load(str(art_dir)).to("cuda")
+    (gen, sst), served, bodies = _counted({"qmatmul": qm_kernel}, lambda:
+                                          serve.run_prefill_decode(
+        model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
+        hook=art.hook(), tag="mixed"))
+    if (min(served["qgemv"], served["qmatmul"]) == 0
+            or bodies["qgemv"]["gemv_tc"] != served["qgemv"]):
+        fail(f"serving the mixed artifact missed a kernel or body: {served}, {bodies}")
+    err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen, "mixed")
+    with torch.no_grad():
+        fp = model.forward(params, held)[0]
+    row = {}
+    for name, r in (("w2", results[2]), ("mixed", res_m), ("w4", results[4])):
+        row[name] = {"bytes": export(model, r).nbytes() if r is not res_m else art_m.nbytes(),
+                     "logits_mse": _logits_mse(torch, model, fp, held, r.params_q)}
+    del fp
+    print(f"[mixed] calibrated mixed artifact ({MIXED_ITERS} iterations a block, "
+          f"{t_mixed:.2f}s): {art_m.nbytes()} B <= {budget} B, containers equal "
+          f"rtn_mixed_artifact's; served: kernel launches {served}; logits kernel vs "
+          f"plain max abs err {err:.3e} (tol {tol:.3e}), token agreement {agree:.4f}")
+
+    # serve --budget-decode-ms on a table timed on K1/K2 from CUDA graph replays
+    shapes = weight_shapes(params, cfg.n_layers)
+    probe, ct_launches, _ = _counted({"qmatmul": qm_kernel},
+                                     lambda: measure_cost_table(shapes, m=8))
+    # each timing: a warm-up call and the inner calls captured in a graph
+    calls = probe.meta["unique_shapes"] * (1 + probe.meta["inner"])
+    if (ct_launches["qgemv"] != calls or ct_launches["qmatmul"] != calls
+            or probe.backend != "cuda"):
+        fail(f"the cost table did not time K1 and K2 on the card: {ct_launches}, "
+             f"backend {probe.backend}")
+    fastest = sum(min(probe.cost(p, b) for b in (2, 4, 8)) for p in shapes)
+    slowest = sum(max(probe.cost(p, b) for b in (2, 4, 8)) for p in shapes)
+    x_ms = (fastest + slowest) / 2
+    env0 = os.environ.get("REPRO_QMM_DISPATCH")
+    ms_dir = workdir / "mixed_ms"
+    try:
+        out, ms_launches, ms_bodies = _counted({"qmatmul": qm_kernel}, lambda: serve.main(
+            ["--arch", "brecq_lm_100m", "--budget-decode-ms", repr(x_ms),
+             "--dispatch", "measured", "--batch", "8", "--prompt-len", "64",
+             "--gen-len", "32", "--no-compare-fp", "--save-artifact", str(ms_dir)],
+            params=params))
+        art_ms = QuantizedArtifact.load(str(ms_dir))
+        info = art_ms.manifest["budget"]
+        table_ms = CostTable.from_json(art_ms.manifest["cost_tables"]["cuda"])
+        installed = dict(qmm_ops._DISPATCH_TABLE or {})
+        parsed = {tuple(int(v) for v in key.split(",")): t
+                  for key, t in table_ms.dispatch.items()}
+        if info["cost"] > x_ms or info["kind"] != "decode_ms":
+            fail(f"--budget-decode-ms {x_ms}: solved cost {info['cost']}")
+        if qmm_ops.dispatch_mode() != "measured" or installed != parsed:
+            fail("serve --dispatch measured did not install its measured table")
+        # every decode-step matmul takes its (K, N, container)'s winning tier
+        n_dec = 0
+        for p, (k, n) in shapes.items():
+            stack, rest = p.split("/", 1)
+            node = art_ms.params[stack.rsplit(".", 1)[0]]
+            for key in rest.split("/"):
+                node = node[key]
+            cb = code_layout(node["w"], k)[0]  # the stack's promoted container
+            n_dec += installed.get((k, n, cb), "decode") == "decode"
+        want_tiers = {"decode": n_dec, "prefill": 2 * len(shapes) - n_dec, "grouped": 0}
+        if out["stats"]["qmm_tiers"] != want_tiers:
+            fail(f"the measured dispatch did not route the served matmuls: tiers "
+                 f"{out['stats']['qmm_tiers']}, expected {want_tiers}")
+        art_ms = art_ms.to("cuda")
+        ms_err, ms_tol, ms_agree = _kernel_vs_plain(torch, model, art_ms.params, batch,
+                                                    out["tokens"], "mixed decode-ms")
+    finally:
+        install_dispatch(None)
+        if env0 is None:
+            os.environ.pop("REPRO_QMM_DISPATCH", None)
+        else:
+            os.environ["REPRO_QMM_DISPATCH"] = env0
+    timed = {}
+    for shape, cb, per_tier in table_ms.meta["timed"]:
+        for tier, ms in per_tier.items():
+            timed[f"{shape[0]}x{shape[1]}/W{cb}/{tier}"] = ms * 1e3
+    smi = _smi()
+    print(f"[mixed] --budget-decode-ms {x_ms:.4f} (all-fastest {fastest:.4f}, "
+          f"all-slowest {slowest:.4f} ms on the probe table): solved bits "
+          f"{info['bits_histogram']}, summed cost {info['cost']:.4f} ms, artifact "
+          f"{art_ms.nbytes()} B; dispatch {sorted(table_ms.dispatch.items())}; served "
+          f"tiers {out['stats']['qmm_tiers']}; kernel launches {ms_launches}; logits "
+          f"kernel vs plain max abs err {ms_err:.3e} (tol {ms_tol:.3e})")
+    print(f"[mixed] bytes / held-out logits MSE vs FP: W2 {row['w2']['bytes']} B "
+          f"{row['w2']['logits_mse']:.4e}; mixed {row['mixed']['bytes']} B "
+          f"{row['mixed']['logits_mse']:.4e}; W4 {row['w4']['bytes']} B "
+          f"{row['w4']['logits_mse']:.4e}; cost table us per (KxN/container/tier) "
+          + ", ".join(f"{k} {v:.2f}" for k, v in sorted(timed.items()))
+          + f"; card {smi}")
+    return {"fq_launches": launches, "shadow": shadow, "budget_bytes": budget,
+            "solution": sol.to_json(), "free_loss": free.predicted_loss,
+            "ga_fitness": ga["fitness"], "ga_wall_s": t_ga,
+            "uniform_wall_s": t_uniform, "measure_wall_s": t_sens,
+            "mixed_calib_wall_s": t_mixed, "quality": row,
+            "serve": {"launches": served, "bodies": bodies, "logits_max_abs_err": err,
+                      "token_agreement": agree, "stats": sst},
+            "cost_table_launches": ct_launches, "cost_table_us": timed,
+            "decode_ms": {"budget_ms": x_ms, "fastest_ms": fastest,
+                          "slowest_ms": slowest, "solve": info,
+                          "launches": ms_launches, "bodies": ms_bodies,
+                          "tiers": out["stats"]["qmm_tiers"],
+                          "logits_max_abs_err": ms_err}, "smi": smi}
 
 
 TIMED_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms")
@@ -1500,7 +1941,7 @@ def _layer(rows, shapes, **sel) -> dict:
 
 
 def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
-                long_engine) -> dict:
+                long_engine, calib_moe, mixed) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
@@ -1515,7 +1956,13 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     the main path's launches of each body. ``bound_ms`` follows the
     arithmetic of the body that ran (bytes against three bf16 passes for
     the decode body, two TF32 or three bf16 passes for the tiles);
-    ``bound_f32_ms`` is the f32 CUDA-core bound earlier rows used."""
+    ``bound_f32_ms`` is the f32 CUDA-core bound earlier rows used. The
+    launches of the later paths stand beside: qgemv's and qmatmul's while
+    the cost table is timed, serving the calibrated mixed artifact and
+    serving under ``--budget-decode-ms``; qmatmul_grouped's serving the
+    calibrated MoE artifact; fakequant's in the MoE calibration (on stacks
+    of experts apart, with its time at one expert leaf) and in the mixed
+    phase."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
             "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
@@ -1533,6 +1980,9 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
                       f"per-channel; M={m}"}
         entry["body"] = tot["bodies"]
         entry["body_launches"] = bodies[name]
+        entry.update({"cost_table_launches": mixed["cost_table_launches"][name],
+                      "mixed_launches": mixed["serve"]["launches"][name],
+                      "budget_decode_ms_launches": mixed["decode_ms"]["launches"][name]})
         if name == "qmatmul":
             big = _layer(rows, SLICE_SHAPES, kernel=name, bits=4, group=None, M=512)
             entry.update({f"m512_{k}": big[k] for k in (*TIMED_KEYS, "bound_by")})
@@ -1582,6 +2032,8 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     entry.update({f"m64_{k}": pre[k] for k in (*TIMED_KEYS, "bound_by")})
     entry["m64_body"] = pre["bodies"]
     entry["body_launches"] = moe["bodies"]["qmatmul_grouped"]
+    entry["calib_moe_launches"] = calib_moe["serve"]["launches"]["qmatmul_grouped"]
+    entry["calib_moe_body_launches"] = calib_moe["serve"]["bodies"]["qmatmul_grouped"]
     out.append(entry)
     tot = {key: sum(SLICE_SHAPES[(r["K"], r["N"])] * r[key] for r in fq["rows"])
            for key in ("ms", "plain_ms", "bound_ms")}
@@ -1593,8 +2045,14 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
         "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": fq["rows"][0]["bound_by"], "library_ms": None,
         "shapes": "one brecq block's weights: 4x768x768, 2x768x2048, 1x2048x768; "
-                  "hard, W2, (1, N) scales",
-        "launches_from": "the full-width W2 calibration"})
+                  "hard, W2, (1, N) scales; experts_*: one deepseek-moe-16b expert "
+                  "leaf, 64x2048x1408 as its (64*2048, 1408) view",
+        "launches_from": "the full-width W2 calibration",
+        "moe_launches": calib_moe["launches"],
+        "moe_expert_launches": calib_moe["view_launches"]["experts"],
+        "mixed_launches": sum(mixed["fq_launches"].values()),
+        **{f"experts_{k}": fq["experts"][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
     return {"kernels": out}
 
 
@@ -1635,14 +2093,19 @@ def main(argv=None) -> None:
         long_engine = phase_engine_long(torch, serve, kernels, Path(tmp))
         moe = phase_moe_serve(torch, serve, kernels, Path(tmp))
         fq_err, fq_rows = phase_fq_kernel(torch, fq_kernel, fq_ref)
-        calib = phase_calib(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
+        reuse, calib = phase_calib(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
+        mixed = phase_mixed(torch, fq_kernel, fq_ref, kernel, serve, reuse, Path(tmp))
+        del reuse
+        calib_moe = phase_calib_moe(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
+        fq_experts = _time_fq_experts(torch, fq_kernel, fq_ref)
 
     line = kernel_line(errs, rows, kv_err, kv_timed, launches, bodies,
                        {"err": moe_err, "rows": moe_rows,
                         "launches": moe["fixed"]["launches"],
                         "bodies": moe["fixed"]["bodies"]},
-                       {"err": fq_err, "rows": fq_rows, "launches": calib["launches"]},
-                       long_engine)
+                       {"err": fq_err, "rows": fq_rows, "launches": calib["launches"],
+                        "experts": fq_experts},
+                       long_engine, calib_moe, mixed)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -1656,8 +2119,10 @@ def main(argv=None) -> None:
              "serve": served, "engine": engine, "engine_long": long_engine,
              "moe_timings": moe_rows,
              "moe": moe, "fakequant_timings": fq_rows, "calib": calib,
+             "mixed": mixed, "calib_moe": calib_moe, "fakequant_experts": fq_experts,
              "kernels": line["kernels"],
-             "wall_s": time.perf_counter() - t_start}, indent=1))
+             "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
+    print(f"[wall] wall_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": device}))

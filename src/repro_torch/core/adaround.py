@@ -7,9 +7,10 @@ h(v) in [0, 1] carries gradients (plain PyTorch under autograd); after
 calibration the rounding is hardened to {0, 1} (Eq. 16 of the paper).
 
 ``hard_quant`` on a CUDA tensor runs the hand-written K5 kernel
-(``kernels/fakequant``) for every config that kernel covers (2-D,
-symmetric, per-channel); the plain formula serves the rest and CPU
-tensors. Which one runs is decided by the config and the device alone.
+(``kernels/fakequant``) for every weight that kernel covers (symmetric,
+per-channel: 2-D, or a stack of experts (E, K, N) whose scale is shared
+across experts); the plain formula serves the rest and CPU tensors. Which
+one runs is decided by the config, the scale's shape and the device alone.
 
 Clips that carry gradients are ``minimum(maximum(x, lo), hi)``, as
 ``jnp.clip``: at a tie both sides get half the gradient, where
@@ -84,7 +85,7 @@ def hard_quant(w: torch.Tensor, v: torch.Tensor, st: QState,
     (zero point 0, ``q * s == (q - 0) * s``)."""
     from ..kernels.fakequant import ops as fq_ops
 
-    if w.is_cuda and fq_ops.covers(w, cfg):
+    if w.is_cuda and fq_ops.covers(w, cfg, st.scale):
         return fq_ops.adaround_forward(w, v, st, cfg, hard=True, backend="cuda")
     hard = (v >= 0).to(w.dtype)
     if cfg.group_size is not None:

@@ -16,9 +16,12 @@ The port of the JAX package's ``repro.core.reconstruction``. Pipeline:
 
 Everything runs where the params are (``interop.params_from_numpy(...,
 device=)``); the calibration batches are moved there. The hardened
-forward and ``bake`` run K5 (``kernels/fakequant``) on the card. The
-port builds the dense family; MoE calibration and the other families
-raise ``NotImplementedError``.
+forward and ``bake`` run K5 (``kernels/fakequant``) on the card, the
+MoE experts' stacked (E, K, N) weights included. The port builds the
+dense and MoE families (a MoE unit spans the ``dense0`` and ``moe``
+stacks through the same walker; the router's aux loss is dropped, as in
+JAX); the other families raise ``NotImplementedError`` when their model
+is built.
 """
 from __future__ import annotations
 
@@ -262,15 +265,6 @@ def _nbytes(a: Optional[torch.Tensor]) -> int:
     return 0 if a is None else a.numel() * a.element_size()
 
 
-def _check_family(model) -> None:
-    # the other families (enc-dec, SSM, xLSTM, VLM) raise when their model
-    # is built (models/transformer.py, ROADMAP module 14)
-    if model.cfg.family == "moe":
-        raise NotImplementedError(
-            "MoE calibration (multi-stack units, router aux) comes with a "
-            "later slice of the port (ROADMAP module 7's queue)")
-
-
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
@@ -281,7 +275,8 @@ def quantize(model, params, calib_batches: list[dict], rc: ReconConfig, *,
     """Run BRECQ calibration (paper Alg. 1) and return quantized params.
 
     Args:
-      model: a dense model exposing ``begin`` / ``apply_block`` / ``finish``.
+      model: a dense or MoE model exposing ``begin`` / ``apply_block`` /
+        ``finish``.
       params: FP parameters (never mutated); calibration runs on their
         device.
       calib_batches: list of calibration batches, concatenated into one
@@ -309,7 +304,6 @@ def quantize(model, params, calib_batches: list[dict], rc: ReconConfig, *,
     if rc.stream_dtype not in calib_loop._DTYPES:
         raise ValueError(
             f"stream_dtype must be 'bfloat16' or 'float32', got {rc.stream_dtype!r}")
-    _check_family(model)
     sdtype = calib_loop._DTYPES[rc.stream_dtype]
     t0 = time.time()
     walker = Walker(model)
@@ -442,6 +436,15 @@ def _revive_unit_stat(u: dict) -> dict:
     if isinstance(u.get("loss_trace"), list):
         u["loss_trace"] = np.asarray(u["loss_trace"])
     return u
+
+
+def _apply_unit(walker, params, unit, hook, x, batch, memory):
+    """Run the unit's contiguous blocks under ``hook`` (block paths as
+    the hook's scope)."""
+    ctx = walker.ctx_for(batch, min(unit), memory)
+    for bi in sorted(unit):
+        x = walker.apply_block(params, bi, x, ctx, hook)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -83,8 +83,8 @@ def dequant_leaf(wp: torch.Tensor, qscale: torch.Tensor, k: int) -> torch.Tensor
     return w.reshape(codes.shape)
 
 
-def rtn_codes(w: torch.Tensor, bits: int, group: Optional[int] = None
-              ) -> tuple[torch.Tensor, torch.Tensor]:
+def rtn_codes(w: torch.Tensor, bits: int, group: Optional[int] = None, *,
+              divide: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Symmetric minmax RTN -> (unpacked int8 codes, f32 scales).
 
     w: (…, K, N); scales are per-(group, out-channel), and ``group``
@@ -92,22 +92,27 @@ def rtn_codes(w: torch.Tensor, bits: int, group: Optional[int] = None
     ``amax * f32(1/qmax)``, a multiply by the f32 reciprocal: that is
     what the JAX package's jitted ``quantize_tree`` computes (XLA rewrites
     the division by a constant), so scales agree bit for bit.
+    ``divide=True`` takes ``amax / qmax`` instead, as the JAX package's
+    eager callers do (its mixed-precision ``rtn_mixed_artifact``).
     """
     k, n = w.shape[-2], w.shape[-1]
     g = group if (group and k % group == 0) else k
     qmax = 2 ** (bits - 1) - 1
-    recip = torch.tensor(np.float32(1.0) / np.float32(qmax), device=w.device)
     wg = w.to(torch.float32).reshape(*w.shape[:-2], k // g, g, n)
     amax = wg.abs().amax(dim=-2, keepdim=True)
-    scale = torch.clamp_min(amax * recip, 1e-8)
+    if divide:
+        step = amax / qmax
+    else:
+        step = amax * torch.tensor(np.float32(1.0) / np.float32(qmax), device=w.device)
+    scale = torch.clamp_min(step, 1e-8)
     codes = torch.clamp(torch.round(wg / scale), -(2 ** (bits - 1)), qmax)
     return codes.reshape(w.shape).to(torch.int8), scale.squeeze(-2)
 
 
-def rtn_pack_leaf(w: torch.Tensor, bits: int, group: Optional[int] = None
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
+def rtn_pack_leaf(w: torch.Tensor, bits: int, group: Optional[int] = None, *,
+                  divide: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`rtn_codes` + :func:`pack_codes`: (packed codes, scales)."""
-    codes, scales = rtn_codes(w, bits, group)
+    codes, scales = rtn_codes(w, bits, group, divide=divide)
     return pack_codes(codes, w.shape[-2], bits), scales
 
 

@@ -31,6 +31,9 @@ SOURCES = (Path(__file__).resolve().parent / "csrc" / "fakequant.cu",)
 # Kernel launches since the last reset_launches(): one per launch that the
 # CUDA runtime accepted.
 LAUNCHES = {"fakequant": 0}
+# The same launches by the weight's rank: a 2-D (K, N) weight, or a stack
+# of experts (E, K, N) run as its (E*K, N) view.
+VIEW_LAUNCHES = {"2d": 0, "experts": 0}
 
 # Set by load_library(): library path, whether it was compiled in this
 # process, build seconds and the compiler's register/spill report.
@@ -40,8 +43,9 @@ _LIB = None
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VIEW_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def load_library() -> ctypes.CDLL:
@@ -63,8 +67,9 @@ def load_library() -> ctypes.CDLL:
 def fakequant(w: torch.Tensor, v: torch.Tensor, scale: torch.Tensor, *,
               qmin: int, qmax: int, hard: bool) -> torch.Tensor:
     """AdaRound forward on the card: w, v (K, N) f32 and scale (1, N) or
-    (K, N) f32 -> ``clip(floor(w / s) + h, qmin, qmax) * s`` (K, N) f32."""
-    sp = describe_fakequant(w.shape, scale.shape)
+    (K, N) f32 -> ``clip(floor(w / s) + h, qmin, qmax) * s`` (K, N) f32.
+    A stack w, v (..., K, N) with a (1, N) scale runs as its (prod(...)*K,
+    N) view and returns the stack's shape."""
     for what, t in (("w", w), ("v", v), ("scale", scale)):
         if t.device.type != "cuda":
             raise ValueError(f"fakequant: {what} lies on {t.device}; the CUDA "
@@ -78,6 +83,10 @@ def fakequant(w: torch.Tensor, v: torch.Tensor, scale: torch.Tensor, *,
     if v.shape != w.shape:
         raise ValueError(f"fakequant: v {tuple(v.shape)} does not match w "
                          f"{tuple(w.shape)}")
+    shape = w.shape
+    if w.ndim > 2 and scale.shape[0] == 1:  # a stack: its (prod(...)*K, N) view
+        w, v = w.view(-1, shape[-1]), v.view(-1, shape[-1])
+    sp = describe_fakequant(w.shape, scale.shape)
     lib = load_library()
     out = torch.empty_like(w)
     with on_device(w.device):
@@ -90,4 +99,5 @@ def fakequant(w: torch.Tensor, v: torch.Tensor, scale: torch.Tensor, *,
         msg = lib.fakequant_error_string(err).decode()
         raise RuntimeError(f"fakequant kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES["fakequant"] += 1
-    return out
+    VIEW_LAUNCHES["experts" if len(shape) > 2 else "2d"] += 1
+    return out.reshape(shape)

@@ -104,7 +104,8 @@ class QuantizedLinear:
     """Deployment weight format: packed codes + per-group scales.
 
       packed  (K * bits/8, N) int8        or stacked (E, K * bits/8, N)
-      scales  (G, N) f32                  or (E, G, N)
+      scales  (G, N) f32                  or (E, G, N), or (1, G, N) shared
+                                          by every expert
     """
 
     packed: torch.Tensor
@@ -180,14 +181,19 @@ def _qmm_grouped(x: torch.Tensor, qw: QuantizedLinear,
             f"grouped qmm: activations (..., E={e}, C={c}, K={k}) do not "
             f"match stacked codes {tuple(qw.packed.shape)} (E, K*bits/8, N)")
     lead = x.shape[:-3]
+    scales = qw.scales
+    if scales.shape[0] == 1 and e > 1:
+        # one (G, N) set shared by every expert, as a calibrated export's
+        # per-channel scales are: each expert reads its own copy
+        scales = scales.expand(e, *scales.shape[1:]).contiguous()
     # (..., E, C, K) -> (E, B'*C, K): experts become the leading grid dim
     xg = x.reshape(-1, e, c, k).transpose(0, 1).reshape(e, -1, k).contiguous()
     if backend == "torch":
         ref = (qmm_grouped_ref if xg.shape[1] <= DECODE_M_MAX
                else qmm_grouped_dense_ref)
-        out = ref(xg, qw.packed, qw.scales, qw.bits)
+        out = ref(xg, qw.packed, scales, qw.bits)
     else:
-        out = kernel.qmatmul_grouped(xg, qw.packed, qw.scales, bits=qw.bits)
+        out = kernel.qmatmul_grouped(xg, qw.packed, scales, bits=qw.bits)
     n = out.shape[-1]
     return out.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
 

@@ -2,9 +2,11 @@
 
 The port of the JAX package's ``repro.launch.serve``:
   1. resolve weights — FP params, a saved :class:`QuantizedArtifact`
-     (``--artifact DIR``), or a fresh RTN artifact (``--quant BITS``,
-     which is saved and re-loaded with verification so the served bytes
-     are exactly what a deployment would ship),
+     (``--artifact DIR``), a fresh RTN artifact (``--quant BITS``), or a
+     mixed-precision one solved under a budget (``--budget-bytes`` /
+     ``--budget-decode-ms``, ``deploy.budget``); fresh artifacts are saved
+     and re-loaded with verification so the served bytes are exactly
+     what a deployment would ship,
   2. prefill the prompt batch, 3. decode N tokens greedily,
   4. report artifact bytes vs FP, tokens/s and which qmm tiers fired.
 
@@ -22,6 +24,11 @@ on the host. Usage:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --quant 4
     PYTHONPATH=src python -m repro_torch.launch.serve --quant 4 --engine
+    PYTHONPATH=src python -m repro_torch.launch.serve --budget-bytes 3e7
+
+``--dispatch measured`` times each decode-shaped layer's tiers (K1 and K2
+on the card, replayed from a CUDA graph between CUDA events) and routes
+by the winners.
 """
 from __future__ import annotations
 
@@ -55,10 +62,30 @@ def parse_args(argv=None):
     p.add_argument("--quant", type=int, default=None, choices=[2, 4, 8],
                    help="pack weights to this many bits (RTN artifact)")
     p.add_argument("--group", type=int, default=None)
+    p.add_argument("--budget-bytes", type=float, default=None,
+                   help="solve per-layer bits so the whole artifact fits "
+                        "this many bytes, then serve it "
+                        "(repro_torch.deploy.budget)")
+    p.add_argument("--budget-decode-ms", type=float, default=None,
+                   help="solve per-layer bits so the summed measured "
+                        "per-layer decode matmul time fits this many ms, "
+                        "then serve it")
+    p.add_argument("--sens", default=None,
+                   help="SensTable JSON (core.sensitivity.SensTable.save) "
+                        "for --budget-*; default: calibration-free RTN "
+                        "weight-error proxy")
+    p.add_argument("--dispatch", default="auto",
+                   choices=["auto", "heuristic", "measured"],
+                   help="qmm decode-shape tier dispatch: measured times "
+                        "each eligible tier at the served shapes (cached "
+                        "in the artifact manifest per backend) and routes "
+                        "by the winners; heuristic keeps the M<=8 gemv "
+                        "guess; auto = measured iff a table is installed")
     p.add_argument("--artifact", default=None,
                    help="serve from a saved QuantizedArtifact directory")
     p.add_argument("--save-artifact", default=None,
-                   help="where --quant saves its artifact (default: tmpdir)")
+                   help="where --quant/--budget-* save the artifact "
+                        "(default: tmpdir)")
     p.add_argument("--no-compare-fp", action="store_true",
                    help="skip the FP throughput reference pass")
     p.add_argument("--packed-backend", default="auto",
@@ -129,6 +156,65 @@ def _check_manifest(manifest: dict, cfg) -> None:
                 f"n_layers={manifest.get('n_layers')}, "
                 f"d_model={manifest.get('d_model')}, "
                 f"vocab={manifest.get('vocab')})")
+
+
+def _solve_budget_artifact(args, cfg, params):
+    """--budget-bytes/--budget-decode-ms: sensitivity table (measured
+    JSON via --sens, else the RTN weight-error proxy) -> exact solver ->
+    packed mixed-precision artifact, on the params' device (a decode-ms
+    table is timed there). Raises on an infeasible budget."""
+    from ..core.sensitivity import SensTable
+    from ..deploy.budget import budget_artifact, weight_sens_table
+
+    if args.budget_bytes is not None and args.budget_decode_ms is not None:
+        raise SystemExit("pass --budget-bytes or --budget-decode-ms, not both")
+    if args.sens:
+        sens = SensTable.load(args.sens)
+    else:
+        sens = weight_sens_table(params, cfg.n_layers, group=args.group)
+    if args.budget_bytes is not None:
+        kind, budget = "bytes", args.budget_bytes
+    else:
+        kind, budget = "decode_ms", args.budget_decode_ms
+    art, sol, _ = budget_artifact(params, sens, budget, kind=kind, cfg=cfg,
+                                  group=args.group,
+                                  m=min(args.batch, 8) if kind != "bytes" else 1)
+    if kind == "bytes" and art.nbytes() > budget:
+        raise ArtifactMismatchError(
+            f"budget solve produced a {art.nbytes()}-byte artifact over the "
+            f"{budget:g}-byte budget")
+    return art
+
+
+def _setup_dispatch(args, cfg, params, artifact, device) -> None:
+    """--dispatch: route decode-shaped qmm calls by measured tier
+    winners. 'measured' times the served shapes now on ``device`` (the
+    CUDA kernels on the card), reusing the artifact's per-backend
+    manifest cache when present; 'heuristic' pins the env override so
+    even an installed table is ignored."""
+    import os
+
+    if args.dispatch == "heuristic":
+        os.environ["REPRO_QMM_DISPATCH"] = "heuristic"
+        return
+    if args.dispatch != "measured":
+        return
+    if artifact is None:
+        raise SystemExit("--dispatch measured needs packed weights "
+                         "(--artifact/--quant/--budget-*)")
+    from ..deploy.budget import (ensure_cost_table, install_dispatch,
+                                 weight_shapes)
+
+    os.environ["REPRO_QMM_DISPATCH"] = "measured"
+    table = ensure_cost_table(artifact, weight_shapes(params, cfg.n_layers),
+                              m=min(args.batch, 8), device=device)
+    install_dispatch(table)
+    wins: dict = {}
+    for tier in table.dispatch.values():
+        wins[tier] = wins.get(tier, 0) + 1
+    print(f"[dispatch] measured tier winners on {table.backend} "
+          f"({table.meta.get('device_name')}, m={table.meta['m']}): {wins} "
+          f"over {table.meta['unique_shapes']} shapes")
 
 
 def _sync(device: torch.device) -> None:
@@ -244,6 +330,22 @@ def main(argv=None, params=None):
             print(f"loaded artifact {args.artifact}: "
                   f"{artifact.nbytes()/1e6:.1f}MB, manifest arch="
                   f"{artifact.manifest.get('arch')}")
+        elif args.budget_bytes is not None or args.budget_decode_ms is not None:
+            art = _solve_budget_artifact(args, cfg, params)
+            if args.save_artifact:
+                out_dir = args.save_artifact
+            else:
+                tmp_dir = tempfile.TemporaryDirectory(prefix="brecq_art_")
+                out_dir = tmp_dir.name
+            art.save(out_dir)
+            # serve what was shipped, through the same verifying loader
+            artifact = QuantizedArtifact.load(out_dir,
+                                              verify=not args.no_verify)
+            info = artifact.manifest["budget"]
+            print(f"[budget] {info['kind']} <= {info['budget']:g}: solved "
+                  f"bits {info['bits_histogram']} predicted-loss "
+                  f"{info['predicted_loss']:.4g}; artifact_bytes="
+                  f"{artifact.nbytes()} -> {out_dir}")
         elif args.quant is not None:
             art = rtn_artifact(params, args.quant, args.group, cfg=cfg)
             if args.save_artifact:
@@ -259,6 +361,7 @@ def main(argv=None, params=None):
                   f"{art.stats['pack_wall_s']:.2f}s -> {out_dir}")
         if artifact is not None:
             artifact = artifact.to(device)
+        _setup_dispatch(args, cfg, params, artifact, device)
         return _serve(args, cfg, model, params, artifact, fp_bytes, device)
     finally:
         if tmp_dir is not None:

@@ -218,12 +218,25 @@ def test_adaround_forward_wrapper_and_typed_errors():
     np.testing.assert_array_equal(
         tfq_ops.adaround_forward(T(w), v, ts, tc, hard=True).numpy(),
         tada.hard_quant(T(w), v, ts, tc).numpy())
-    assert tfq_ops.covers(T(w), tc)
-    with pytest.raises(KernelSpecError, match="2-D"):
-        tfq_ops.adaround_forward(T(w)[None], v[None], ts, tc, hard=True)
+    assert tfq_ops.covers(T(w), tc, ts.scale)
+    # a stack of experts (E, K, N) with a scale shared across experts runs
+    # as its (E*K, N) view; per-expert scales and 1-D weights do not
+    stack, vs = torch.stack([T(w), 2 * T(w)]), torch.stack([v, -v])
+    assert tfq_ops.covers(stack, tc, ts.scale[None])
+    np.testing.assert_array_equal(
+        tfq_ops.adaround_forward(stack, vs, tq.QState(ts.scale[None], ts.zero_point),
+                                 tc, hard=True).numpy(),
+        torch.stack([tada.hard_quant(T(w), v, ts, tc),
+                     tada.hard_quant(2 * T(w), -v, ts, tc)]).numpy())
+    per_expert = tq.QState(torch.stack([ts.scale, ts.scale]), ts.zero_point)
+    assert not tfq_ops.covers(stack, tc, per_expert.scale)
+    with pytest.raises(KernelSpecError, match="shared across its leading dims"):
+        tfq_ops.adaround_forward(stack, vs, per_expert, tc, hard=True)
+    with pytest.raises(KernelSpecError, match=r"\(K, N\)"):
+        tfq_ops.adaround_forward(T(w)[0], v[0], ts, tc, hard=True)
     for bad in (dataclasses.replace(tc, group_size=16),
                 dataclasses.replace(tc, symmetric=False)):
-        assert not tfq_ops.covers(T(w), bad)
+        assert not tfq_ops.covers(T(w), bad, ts.scale)
         with pytest.raises(KernelSpecError, match="symmetric per-channel"):
             tfq_ops.adaround_forward(T(w), v, ts, bad, hard=True)
     with pytest.raises(ValueError, match="backend"):

@@ -1,6 +1,8 @@
 """The CUDA kernels (qgemv, qmatmul, qmatmul_grouped, kv_decode and its paged
-entry, fakequant) against their plain PyTorch versions, on the card, and the
-serve engine's, the MoE layer's and the calibration's kernel paths.
+entry, fakequant, on 2-D weights and on stacks of experts) against their
+plain PyTorch versions, on the card, and the serve engine's, the MoE
+layer's, the calibration's and the budgeted deployment's kernel paths (the
+measured cost table, ``serve --budget-bytes``).
 
 The kernels have no CPU mode, so every test here is marked
 ``requires_cuda`` and skips without a GPU. This file imports neither JAX
@@ -718,8 +720,12 @@ def test_fakequant_rejects_uncovered_configs(cuda):
     from repro_torch.kernels.spec import KernelSpecError
 
     w, v, s, cfg, st = fq_case(64, 48, False, cuda)
-    with pytest.raises(KernelSpecError, match="2-D"):
-        fq_ops.adaround_forward(w[None], v[None], st, cfg, hard=True)
+    with pytest.raises(KernelSpecError, match=r"\(K, N\)"):
+        fq_ops.adaround_forward(w[0], v[0], st, cfg, hard=True)
+    per_expert = type(st)(torch.stack([s, s]), st.zero_point)
+    with pytest.raises(KernelSpecError, match="shared across its leading dims"):
+        fq_ops.adaround_forward(torch.stack([w, w]), torch.stack([v, v]), per_expert,
+                                cfg, hard=True)
     for bad in (dataclasses.replace(cfg, group_size=16),
                 dataclasses.replace(cfg, symmetric=False)):
         with pytest.raises(KernelSpecError, match="symmetric per-channel"):
@@ -755,6 +761,114 @@ def test_hard_quant_auto_launches_kernel(cuda):
     gst = init_qstate(w, g)
     adaround.hard_quant(w, v, gst, g)
     assert fq_kernel.LAUNCHES["fakequant"] == before + 2
+
+
+def expert_case(e, k, n, device, bits=2, seed=0):
+    """A stack of ``e`` experts' (K, N) weights with one scale per output
+    channel shared across experts, as calibration's QState has it."""
+    from repro_torch.core.quantizer import QConfig, QState
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((e, k, n), generator=gen, device=device) * 0.02
+    v = torch.randn((e, k, n), generator=gen, device=device) * 2
+    cfg = QConfig(bits=bits, channel_axis=-1)
+    s = torch.clamp_min(w.abs().amax((0, 1), keepdim=True) / cfg.qmax, 1e-8)
+    return w, v, cfg, QState(s, torch.zeros_like(s))
+
+
+@pytest.mark.parametrize("e,k,n", [(64, 2048, 1408), (64, 1408, 2048), (8, 64, 96),
+                                   (3, 33, 7)])
+def test_fakequant_expert_stack_matches_plain(cuda, e, k, n):
+    """K5 on a stack of experts (E, K, N), run as its (E*K, N) view: bit
+    for bit the plain hard_quant formula, and each expert's slice equal to
+    the kernel on that expert alone."""
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+    from repro_torch.kernels.fakequant import ops as fq_ops
+
+    w, v, cfg, st = expert_case(e, k, n, cuda)
+    before = dict(fq_kernel.VIEW_LAUNCHES)
+    got = fq_ops.adaround_forward(w, v, st, cfg, hard=True)
+    assert fq_kernel.VIEW_LAUNCHES["experts"] == before["experts"] + 1
+    hard = (v >= 0).to(w.dtype)
+    want = torch.clamp(torch.floor(w / st.scale) + hard, cfg.qmin, cfg.qmax) * st.scale
+    torch.cuda.synchronize()
+    assert got.shape == w.shape and torch.equal(got, want)
+    one = fq_ops.adaround_forward(w[e - 1].contiguous(), v[e - 1].contiguous(),
+                                  type(st)(st.scale[0], st.zero_point[0]), cfg, hard=True)
+    assert torch.equal(one, got[e - 1])
+    soft = fq_ops.adaround_forward(w, v, st, cfg, hard=False)
+    ref = fq_ops.adaround_forward(w, v, st, cfg, hard=False, backend="torch")
+    torch.cuda.synchronize()
+    assert float((soft - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+
+
+def test_hard_quant_routes_expert_stacks_to_the_kernel(cuda):
+    import dataclasses
+
+    from repro_torch.core import adaround
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+
+    w, v, cfg, st = expert_case(8, 64, 96, cuda)
+    before = fq_kernel.LAUNCHES["fakequant"], fq_kernel.VIEW_LAUNCHES["experts"]
+    got = adaround.hard_quant(w, v, st, cfg)
+    assert (fq_kernel.LAUNCHES["fakequant"], fq_kernel.VIEW_LAUNCHES["experts"]) == \
+        (before[0] + 1, before[1] + 1)
+    assert torch.equal(got, adaround.hard_quant(w.cpu(), v.cpu(), type(st)(
+        st.scale.cpu(), st.zero_point.cpu()), cfg).to(cuda))
+    # per-expert scales take the plain formula, by the scale's shape
+    pe = torch.clamp_min(w.abs().amax(1, keepdim=True) / cfg.qmax, 1e-8)
+    adaround.hard_quant(w, v, type(st)(pe, torch.zeros_like(pe)), cfg)
+    adaround.hard_quant(w, v, st, dataclasses.replace(cfg, symmetric=False))
+    assert fq_kernel.LAUNCHES["fakequant"] == before[0] + 1
+
+
+def test_measure_cost_table_times_the_cuda_tiers(cuda):
+    from repro_torch.deploy.budget import install_dispatch, measure_cost_table
+
+    shapes = {"body.0/a": (768, 768), "body.1/a": (768, 768), "body.0/b": (2048, 768),
+              "moe.0/w": (8, 256, 128)}
+    kernel.reset_launches()
+    table = measure_cost_table(shapes, m=8, inner=2, reps=2, device=cuda)
+    assert table.backend == "cuda"
+    assert table.meta["device_name"] == torch.cuda.get_device_name(cuda)
+    # 2 dense shapes x 3 containers x 2 tiers, 1 stack x 3 containers; each
+    # timing is 1 warm-up + the inner calls captured in a CUDA graph
+    calls = 1 + 2
+    assert kernel.LAUNCHES["qgemv"] == 2 * 3 * calls
+    assert kernel.LAUNCHES["qmatmul"] == 2 * 3 * calls
+    assert kernel.LAUNCHES["qmatmul_grouped"] == 3 * calls
+    assert all(c > 0 for c in table.costs.values())
+    assert table.cost("body.0/a", 4) == table.cost("body.1/a", 4)
+    assert table.tiers[("moe.0/w", 2)] == "grouped"
+    try:
+        install_dispatch(table)
+        ops.reset_tier_counts()
+        x = torch.randn(8, 768, device=cuda)
+        qw = ops.QuantizedLinear(*case(4, 768, 768, 1, 8, cuda)[1:], 4, 768)
+        ops.qmm(x, qw)
+        assert ops.TIER_COUNTS[table.dispatch["768,768,4"]] == 1
+    finally:
+        install_dispatch(None)
+
+
+def test_serve_budget_bytes_on_card(cuda):
+    from repro_torch.deploy.budget import rtn_mixed_artifact, weight_shapes
+    from repro_torch.launch import serve
+    from repro_torch.models import get_model
+
+    cfg, model = get_model("brecq_lm_100m", reduced=True)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    shapes = weight_shapes(params, cfg.n_layers)
+    lo = rtn_mixed_artifact(params, {p: 2 for p in shapes}, cfg=cfg).nbytes()
+    hi = rtn_mixed_artifact(params, {p: 8 for p in shapes}, cfg=cfg).nbytes()
+    budget = (lo + hi) // 2
+    kernel.reset_launches()
+    out = serve.main(["--reduced", "--budget-bytes", str(budget), "--batch", "2",
+                      "--prompt-len", "8", "--gen-len", "4", "--no-compare-fp"],
+                     params=params)
+    assert out["artifact_bytes"] <= budget
+    assert out["tokens"].shape == (2, 4) and out["tokens"].is_cuda
+    assert kernel.LAUNCHES["qgemv"] > 0 and kernel.LAUNCHES["qmatmul"] > 0
 
 
 def test_two_block_full_width_calibration_on_card(cuda):

@@ -18,7 +18,7 @@ import torch
 
 from repro.deploy import rtn_pack_leaf as j_rtn_pack_leaf
 from repro.kernels.qmatmul import ops as jops
-from repro_torch.deploy import rtn_pack_leaf
+from repro_torch.deploy import pack_codes, rtn_pack_leaf
 from repro_torch.kernels import spec
 from repro_torch.kernels.qmatmul import ops, ref
 
@@ -122,3 +122,20 @@ def test_grouped_shape_contract():
         spec.describe_qmatmul_grouped((3, 8, 128), (3, 64, 32), (3, 1, 31), bits=4)
     with pytest.raises(spec.KernelSpecError, match="3-D"):
         spec.describe_qmatmul_grouped((8, 128), (3, 64, 32), (3, 1, 32), bits=4)
+
+
+@pytest.mark.parametrize("m", [1, 8, 9])
+def test_grouped_scales_shared_by_the_experts(m):
+    """A calibrated export's expert scales are one (1, G, N) set shared by
+    every expert: the grouped tier serves it as that set repeated per
+    expert, in the decode (<= 8 rows) and prefill forms."""
+    rng = np.random.default_rng(m)
+    codes = torch.from_numpy(rng.integers(-2, 2, (4, 64, 48)).astype(np.int8))
+    s = torch.from_numpy(rng.uniform(0.01, 0.1, (1, 1, 48)).astype(np.float32))
+    packed = pack_codes(codes, 64, 2)
+    x = torch.from_numpy(rng.normal(size=(4, m, 64)).astype(np.float32))
+    got = ops.qmm(x, ops.QuantizedLinear(packed, s, 2, 64))
+    want = ops.qmm(x, ops.QuantizedLinear(packed, s.expand(4, 1, 48).contiguous(), 2, 64))
+    dense = torch.einsum("emk,ekn->emn", x, codes.float() * s)
+    assert torch.equal(got, want)
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), rtol=TOL, atol=TOL)
