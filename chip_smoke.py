@@ -91,13 +91,41 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              export, verified load, fixed batch served through
              qmatmul_grouped (M 64 prefill, M 8 decode) and replayed; K5 timed
              at one expert leaf
- 10. report  one JSON line of kernels (qmatmul at M 32 and, as added
+ 10. family  hold qgemv, qmatmul and kv_decode against their plain
+             versions at the attention families' new shapes and time them
+             there: qgemv on llama-3.2-vision-90b's MLP (8192 x 28672 and
+             back, W4 and W2: off L2), qmatmul over whisper-small's encoder
+             (M 12000) and the VLM's cross-attention K/V (M 8192, K 8192),
+             kv_decode's paged entry at h2o-danube3-4b's (hd 120, G 4) and
+             gemma3-12b's (hd 256, G 2) decode reads, with a window that masks
+ 11. whisper whisper-small at full width and depth (12 encoder + 12 decoder
+             layers, every cross-attention gate at 1.0), 32 x 128 tokens
+             over 1500 frames each: BRECQ W4 calibration (encoder units, the
+             boundary, decoder units; every K5 call shadowed), BRECQ closer
+             to FP than RTN on held-out logits and on the last encoder
+             block's output, export and verified load, a fixed batch (8 x 64
+             + 32 over 1500 frames) served through K2 (the encoder, M 12000)
+             and K1 (decode, counted per step), replayed by the plain path;
+             redrawn frames move the logits
+ 12. vlm     llama-3.2-vision-90b at full width, cut to one group of 5
+             layers (4 self-attention + 1 gated cross-attention): RTN W4 on
+             the card, a fixed batch of 8 x 64 + 32 with 1024 patches an
+             image, K1 on 8192 x 28672 counted, replayed by the plain path;
+             redrawn patches move the logits
+ 13. dense   h2o-danube3-4b at full width and depth and gemma3-12b at full
+             width (one 5 local + 1 global group) through the engine: RTN
+             W4, int8 pool, 8 slots, 16 streams of 64-256 prompt tokens;
+             every kv_decode launch on the paged entry (8-byte body at hd
+             120, 16-byte body at hd 256) and shadowed, kernel vs plain
+             logits, staggered == sequential
+ 14. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
              64; the launches of each body on the main paths, for qgemv,
              qmatmul, qmatmul_grouped and kv_decode, whose launches are also
-             counted by entry and by split; the launches of the mixed and
-             calib_moe paths), the run's wall, the card's name and power
-             limit, and the final ``{"ok": true, "device": ...}`` line
+             counted by entry and by split; the launches of the mixed,
+             calib_moe and the attention families' paths, and the times at
+             the families' shapes), the run's wall, the card's name and
+             power limit, and the final ``{"ok": true, "device": ...}`` line
 
 Exits non-zero on any failure, and when no CUDA device is available.
 
@@ -219,6 +247,43 @@ MOE_CALIB_SEQS, MOE_CALIB_ITERS = 16, 50
 # mixed precision on brecq-lm-100m: W4/W8 calibrations for the sensitivity
 # table, the table on 32 sequences, the per-layer-bits calibration
 SENS_ITERS, SENS_SEQS, MIXED_ITERS = 50, 32, 100
+
+
+# the attention families (every cross-attention gate at XGATE: JAX's init
+# of 0 would make the logits blind to the frames and the patches).
+# whisper-small at full width and depth: 12 encoder + 12 decoder layers,
+# 32 sequences of 128 decoder tokens over WHISPER_FRAMES frames each
+# (Whisper's 30 s window), W4, 100 iterations a block, minibatch 8
+XGATE = 1.0
+WHISPER_FRAMES, WHISPER_SEQS, WHISPER_ITERS = 1500, 32, 100
+# llama-3.2-vision-90b at full width, cut from 100 layers to one group of
+# 5 (4 self-attention + 1 gated cross-attention): 25.5 GB as f32
+VLM_LAYERS = 5
+# gemma3-12b at full width, cut from 48 layers to one 5 local + 1 global
+# group (12 GB as f32, 8 of it the untied 262,144-word table and head);
+# h2o-danube3-4b at full depth (24 layers, 15.9 GB)
+GEMMA_LAYERS = 6
+DENSE_ENGINE_STREAMS, DENSE_PROMPTS = 16, (64, 256)
+# (kernel, M, K, N, bits, timing label): K1 on the VLM's MLP, W4 and W2,
+# both ways (117 MB of W4 codes: off L2); K2 over whisper's encoder (8 x
+# 1,500 frames into its MLP) and the VLM's cross-attention K/V (8 x 1,024
+# patches)
+FAMILY_QMM = [("qgemv", 8, 8192, 28672, 4, "vlm_mlp"), ("qgemv", 8, 28672, 8192, 4, None),
+              ("qgemv", 8, 8192, 28672, 2, None), ("qgemv", 8, 28672, 8192, 2, None),
+              ("qmatmul", 12000, 768, 3072, 4, "whisper_enc"),
+              ("qmatmul", 8192, 8192, 1024, 4, "vlm_xkv")]
+# K4's paged entry at the dense engines' decode reads (B, H, K, hd, page
+# size, pages a stream, window): 8 slots over S_cap 288, one idle; also
+# held against the plain version under a window that masks
+FAMILY_KV = {"danube": (8, 32, 8, 120, 16, 18, 4096),
+             "gemma3": (8, 16, 8, 256, 16, 18, 1024)}
+FAMILY_KV_MASKING_WINDOW = 100
+# Redrawing the memory must move the served prefill logits by more than
+# this many times the kernel-vs-plain replay limit (1e-3 * max|logit|).
+# Whisper's decoder cross-attends in all 12 layers; the VLM's one gated
+# cross-attention layer averages 1,024 random patches, which moves its
+# logits ~20x the limit on random weights (PERF.md).
+MEMORY_MOVES = {"whisper": 100, "vlm": 10}
 
 
 def tolerance(ref) -> float:
@@ -574,30 +639,8 @@ def phase_kv(torch, kv_kernel, kv_ref) -> tuple[float, dict]:
 
     # the paged entry at the engine's decode shape (6 pages of 16 a stream,
     # two idle slots), beside the gather + casts + dense kernel it replaces
-    B, H, K, hd, ps, mp = 8, 12, 12, 64, 16, 6
-    q, pool, bt, cur = paged_inputs(torch, B, H, K, hd, ps, mp, seed=1, idle=2)
-    per_set = sum(t.numel() * t.element_size() for t in pool.values())
-    sets = [(q, *(pool[k].clone() for k in ("k_pages", "v_pages", "k_scale", "v_scale")),
-             bt, cur) for _ in range(max(2, math.ceil(L2_FLUSH_BYTES / per_set)))]
-    t_paged = graph_time_ms(torch, lambda *a: kv_kernel.kv_decode_paged(*a, page_size=ps),
-                            sets)
-    t_gd = graph_time_ms(torch, lambda *a: kv_kernel.kv_decode(*_gathered(a, ps)), sets)
-    t_plain = graph_time_ms(torch, lambda *a: kv_ref.kv_decode_ref(*_gathered(a, ps)), sets)
-    t_dense = graph_time_ms(torch, kv_kernel.kv_decode, [_gathered(a, ps) for a in sets])
-    t_lib, lib_err = sdpa_time(torch, F, kv_ref, _gathered(sets[0], ps))
-    del sets
-    b_ms, b_by = kv_paged_bound(q, bt, cur, K, ps)
-    plan = plan_kv_decode(B, K, mp * ps, hd, H // K)
-    timed["paged"] = {"B": B, "H": H, "K": K, "hd": hd, "S": mp * ps, "page_size": ps,
-                      "body": kv_decode_body(hd), "warps": plan.warps, "split": plan.split,
-                      "ms": t_paged, "gather_dense_ms": t_gd, "dense_ms": t_dense,
-                      "plain_ms": t_plain, "library_ms": t_lib,
-                      "library_max_abs_err": lib_err, "bound_ms": b_ms, "bound_by": b_by}
-    print(f"[time] kv_decode paged  B={B} H={H} K={K} hd={hd:3d} S={mp * ps:4d} "
-          f"(pages of {ps}): kernel {t_paged*1e3:9.2f} us  gather + dense kernel "
-          f"{t_gd*1e3:9.2f} us  dense kernel on the gathered view {t_dense*1e3:9.2f} us  "
-          f"plain {t_plain*1e3:9.2f} us  library {t_lib*1e3:9.2f} us (err "
-          f"{lib_err:.1e})  bound {b_ms*1e3:7.2f} us ({b_by})")
+    timed["paged"] = _time_paged(torch, F, kv_kernel, kv_ref, 8, 12, 12, 64, 16, 6,
+                                 idle=2)
     return err_max, timed
 
 
@@ -1387,6 +1430,28 @@ def _shadowed_fq(torch, fq_kernel, fq_ref, log: dict):
     return orig, fn
 
 
+def _counted_fq(torch, fq_kernel, fq_ref, qm_kernel, fn):
+    """Run ``fn`` with every K5 call shadowed by its plain version; returns
+    (fn's result, K5 launches, shadow log, the packed matmuls' launches,
+    wall seconds, device peak bytes)."""
+    shadow = {"calls": 0, "mismatches": 0}
+    orig, fq_kernel.fakequant = _shadowed_fq(torch, fq_kernel, fq_ref, shadow)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in (fq_kernel, qm_kernel):
+            k.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fq_kernel.LAUNCHES["fakequant"]
+        others = dict(qm_kernel.LAUNCHES)
+    finally:
+        fq_kernel.fakequant = orig
+    return out, launches, shadow, others, wall, torch.cuda.max_memory_allocated()
+
+
 def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> tuple:
     """BRECQ calibration of brecq-lm-100m at full width and depth through
     ``repro_torch.core.quantize``, K5 launches counted and shadowed; the
@@ -1406,22 +1471,9 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> tu
             make_batches(corpus, 1, HELDOUT_SEQS, CALIB_LEN, seed=2)[0].items()}
     rc = ReconConfig(w_bits=2, iters=CALIB_ITERS, calib_bs=8)
 
-    shadow = {"calls": 0, "mismatches": 0}
-    orig, fq_kernel.fakequant = _shadowed_fq(torch, fq_kernel, fq_ref, shadow)
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in (fq_kernel, qm_kernel):  # the calibration path runs K5 only
-            k.reset_launches()
-        t0 = time.perf_counter()
-        res = quantize(model, params, calib, rc)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = fq_kernel.LAUNCHES["fakequant"]
-        others = dict(qm_kernel.LAUNCHES)
-    finally:
-        fq_kernel.fakequant = orig
-    peak = torch.cuda.max_memory_allocated()
+    # the calibration path runs K5 only
+    res, launches, shadow, others, wall, peak = _counted_fq(
+        torch, fq_kernel, fq_ref, qm_kernel, lambda: quantize(model, params, calib, rc))
     st = res.stats
     retries = st["unit_retries"]
     expect = cfg.n_layers * 2 * 7 + cfg.n_layers * 7 + 14 * retries
@@ -1569,23 +1621,9 @@ def phase_calib_moe(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -
             make_batches(corpus, 1, HELDOUT_SEQS, CALIB_LEN, seed=2)[0].items()}
     rc = ReconConfig(w_bits=2, iters=MOE_CALIB_ITERS, calib_bs=8)
 
-    shadow = {"calls": 0, "mismatches": 0}
-    orig, fq_kernel.fakequant = _shadowed_fq(torch, fq_kernel, fq_ref, shadow)
-    try:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for k in (fq_kernel, qm_kernel):
-            k.reset_launches()
-        t0 = time.perf_counter()
-        res = quantize(model, params, calib, rc)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = fq_kernel.LAUNCHES["fakequant"]
-        views = dict(fq_kernel.VIEW_LAUNCHES)
-        others = dict(qm_kernel.LAUNCHES)
-    finally:
-        fq_kernel.fakequant = orig
-    peak = torch.cuda.max_memory_allocated()
+    res, launches, shadow, others, wall, peak = _counted_fq(
+        torch, fq_kernel, fq_ref, qm_kernel, lambda: quantize(model, params, calib, rc))
+    views = dict(fq_kernel.VIEW_LAUNCHES)
     st = res.stats
     expect, expect_experts = _fq_expected(model, res)
     print(f"[calib_moe] {cfg.name} at full width, {MOE_LAYERS} layers ({n_moe} MoE, "
@@ -1925,6 +1963,531 @@ def phase_mixed(torch, fq_kernel, fq_ref, qm_kernel, serve, reuse: dict,
                           "logits_max_abs_err": ms_err}, "smi": smi}
 
 
+# ---------------------------------------------------------------------------
+# the attention families: whisper-small, llama-3.2-vision-90b, gemma3-12b and
+# h2o-danube3-4b at full width
+# ---------------------------------------------------------------------------
+
+
+def _open_gates(tree):
+    """Every cross-attention gate at XGATE (JAX's init of 0 would leave the
+    logits blind to the frames and the patches); returns ``tree``."""
+    for k, v in tree.items():
+        if k == "xgate":
+            v.fill_(XGATE)
+        elif isinstance(v, dict):
+            _open_gates(v)
+    return tree
+
+
+@contextlib.contextmanager
+def _shapes_logged(qm_kernel, log: dict):
+    """Count the packed matmuls' launches by (kernel, M, K, N) while serving:
+    ``qmm`` looks the kernels up on their module on every call."""
+    orig = {n: getattr(qm_kernel, n) for n in ("qgemv", "qmatmul")}
+
+    def wrap(name):
+        def fn(x, wp, s, *, bits):
+            key = (name, x.shape[0], x.shape[-1], wp.shape[-1])
+            log[key] = log.get(key, 0) + 1
+            return orig[name](x, wp, s, bits=bits)
+        return fn
+
+    for n in orig:
+        setattr(qm_kernel, n, wrap(n))
+    try:
+        yield log
+    finally:
+        for n, f in orig.items():
+            setattr(qm_kernel, n, f)
+
+
+def _time_paged(torch, F, kv_kernel, kv_ref, B, H, K, hd, ps, mp, *, idle, seed=1,
+                window=None) -> dict:
+    """K4's paged entry at (B, H, K, hd) over ``mp`` pages of ``ps`` a
+    stream: kernel, the gather + casts + dense kernel it replaces, the
+    dense kernel on the gathered view, the plain version, the library
+    yardstick and this data's bound."""
+    from repro_torch.kernels.spec import kv_decode_body, plan_kv_decode
+
+    q, pool, bt, cur = paged_inputs(torch, B, H, K, hd, ps, mp, seed=seed, idle=idle)
+    per_set = sum(t.numel() * t.element_size() for t in pool.values())
+    sets = [(q, *(pool[k].clone() for k in ("k_pages", "v_pages", "k_scale", "v_scale")),
+             bt, cur) for _ in range(max(2, math.ceil(L2_FLUSH_BYTES / per_set)))]
+    t_paged = graph_time_ms(torch, lambda *a: kv_kernel.kv_decode_paged(
+        *a, page_size=ps, window=window), sets)
+    t_gd = graph_time_ms(torch, lambda *a: kv_kernel.kv_decode(
+        *_gathered(a, ps), window=window), sets)
+    t_plain = graph_time_ms(torch, lambda *a: kv_ref.kv_decode_ref(
+        *_gathered(a, ps), window), sets)
+    t_dense = graph_time_ms(torch, lambda *a: kv_kernel.kv_decode(*a, window=window),
+                            [_gathered(a, ps) for a in sets])
+    t_lib, lib_err = sdpa_time(torch, F, kv_ref, _gathered(sets[0], ps))
+    del sets
+    b_ms, b_by = kv_paged_bound(q, bt, cur, K, ps)
+    plan = plan_kv_decode(B, K, mp * ps, hd, H // K)
+    print(f"[time] kv_decode paged  B={B} H={H} K={K} hd={hd:3d} S={mp * ps:4d} "
+          f"(pages of {ps}): kernel {t_paged*1e3:9.2f} us  gather + dense kernel "
+          f"{t_gd*1e3:9.2f} us  dense kernel on the gathered view {t_dense*1e3:9.2f} us  "
+          f"plain {t_plain*1e3:9.2f} us  library {t_lib*1e3:9.2f} us (err "
+          f"{lib_err:.1e})  bound {b_ms*1e3:7.2f} us ({b_by})  {kv_decode_body(hd)}, "
+          f"{plan.warps} warps, split {plan.split}")
+    return {"B": B, "H": H, "K": K, "hd": hd, "S": mp * ps, "page_size": ps,
+            "body": kv_decode_body(hd), "warps": plan.warps, "split": plan.split,
+            "ms": t_paged, "gather_dense_ms": t_gd, "dense_ms": t_dense,
+            "plain_ms": t_plain, "library_ms": t_lib, "library_max_abs_err": lib_err,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_family_kernels(torch, kernel, ref, pack, kv_kernel, kv_ref) -> dict:
+    """K1, K2 and K4 against their plain versions at the shapes no earlier
+    path ran, and timed there: K1 on llama-3.2-vision-90b's MLP (8,192 x
+    28,672 and back, W4 and W2: weights far larger than L2), K2 over
+    whisper-small's encoder (8 x 1,500 frames: M 12,000 into its MLP) and
+    the VLM's cross-attention K/V (8 x 1,024 patches, K 8,192, N 1,024), and
+    K4's paged entry at h2o-danube3-4b's (hd 120, G 4, the 8-byte body) and
+    gemma3-12b's (hd 256, G 2) decode reads over the dense engines' pools."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.kvattn import ops as kv_ops
+    from repro_torch.kernels.spec import kv_decode_body
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"qgemv": 0.0, "qmatmul": 0.0, "kv_decode": 0.0}
+    rows = {}
+    fns = {"qgemv": (kernel.qgemv, ref.qgemv_ref),
+           "qmatmul": (kernel.qmatmul, ref.qmatmul_ref)}
+    for name, m, k, n, bits, timed in FAMILY_QMM:
+        fn, plain = fns[name]
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        wp, s = pack.rtn_pack_leaf(w, bits, None)
+        del w
+        x = torch.randn((m, k), generator=gen, device=dev)
+        out, want = fn(x, wp, s, bits=bits), plain(x, wp, s, bits)
+        torch.cuda.synchronize()
+        err = float((out - want).abs().max())
+        rel = err / max(float(want.abs().max()), 1e-30)
+        errs[name] = max(errs[name], err)
+        if not math.isfinite(err) or err > tolerance(want):
+            fail(f"{name} W{bits} M={m} K={k} N={n}: max abs err {err:.3e} > tol "
+                 f"{tolerance(want):.3e}")
+        del out, want
+        if timed:
+            rows[timed] = _time_case(torch, name, fn, plain, ref, x, wp, s, bits, None,
+                                     m, k, n, err, rel)
+        del x, wp, s
+        torch.cuda.empty_cache()
+    for label, (B, H, K, hd, ps, mp, window) in FAMILY_KV.items():
+        for win in (window, FAMILY_KV_MASKING_WINDOW):
+            q, pool, bt, cur = paged_inputs(torch, B, H, K, hd, ps, mp, idle=1)
+            before = dict(kv_kernel.BODY_LAUNCHES["kv_decode"])
+            got = kv_ops.attend_int8_paged(q, pool, bt, cur, ps, window=win,
+                                           backend="cuda")
+            want = kv_ops.attend_int8_paged(q, pool, bt, cur, ps, window=win,
+                                            backend="torch")
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["kv_decode"] = max(errs["kv_decode"], err)
+            body = kv_decode_body(hd)
+            if kv_kernel.BODY_LAUNCHES["kv_decode"][body] != before[body] + 1:
+                fail(f"kv_decode paged at hd {hd} did not take its body {body}")
+            if not math.isfinite(err) or err > tolerance(want):
+                fail(f"kv_decode paged {label} window {win}: max abs err {err:.3e} > "
+                     f"tol {tolerance(want):.3e}")
+        rows[label] = _time_paged(torch, F, kv_kernel, kv_ref, B, H, K, hd, ps, mp,
+                                  idle=1, window=window)
+    print(f"[family] kernel-vs-plain at the families' shapes within 1e-4*max|ref|+1e-5: "
+          f"max abs err {errs}")
+    return {"errs": errs, "rows": rows}
+
+
+def _with_frames(torch, gen, batch: dict, d: int) -> dict:
+    """``batch`` on the card with WHISPER_FRAMES frames of width ``d`` a
+    sequence, normals from ``gen`` (the stub frontend's embeddings)."""
+    out = {k: t.cuda() for k, t in batch.items()}
+    b = out["tokens"].shape[0]
+    out["frames"] = torch.randn((b, WHISPER_FRAMES, d), generator=gen, device="cuda")
+    return out
+
+
+def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> dict:
+    """whisper-small at full width and depth (12 encoder + 12 decoder
+    layers), every cross-attention gate at XGATE: BRECQ W4 calibration
+    through ``repro_torch.core.quantize`` (encoder units, the boundary,
+    decoder units; every K5 call shadowed), BRECQ against RTN on held-out
+    logits and on the last encoder block's output, export, verified load,
+    and a fixed batch served from the packed artifact through K2 (the
+    encoder at M 12,000) and K1 (decode), replayed by the plain path; the
+    logits move when the frames are redrawn."""
+    from repro_torch.core import ReconConfig, adaround, quantize, reconstruction
+    from repro_torch.data import Corpus, CorpusConfig, make_batches
+    from repro_torch.deploy import QuantizedArtifact, dequant_leaf, export
+    from repro_torch.interop import tree_leaves
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+    from repro_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    cfg, model = get_model("whisper_small")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = _open_gates(model.init(gen))
+    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
+    calib = [_with_frames(torch, gen, b, cfg.d_model) for b in
+             make_batches(corpus, WHISPER_SEQS // 8, 8, CALIB_LEN, seed=1)]
+    held = _with_frames(torch, gen, make_batches(corpus, 1, HELDOUT_SEQS, CALIB_LEN,
+                                                 seed=2)[0], cfg.d_model)
+    rc = ReconConfig(w_bits=4, iters=WHISPER_ITERS, calib_bs=8)
+    res, launches, shadow, others, wall, peak = _counted_fq(
+        torch, fq_kernel, fq_ref, qm_kernel, lambda: quantize(model, params, calib, rc))
+    st = res.stats
+    walker = reconstruction.Walker(model)
+    expect, _ = _fq_expected(model, res)
+    units = [u["unit"] for u in st["units"]]
+    print(f"[whisper] {cfg.name} full width and depth ({cfg.n_layers} encoder + "
+          f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, vocab {cfg.vocab}), "
+          f"W4, {WHISPER_SEQS}x{CALIB_LEN} tokens over {WHISPER_FRAMES} frames, iters "
+          f"{rc.iters}, calib_bs {rc.calib_bs}: calib_wall_s {st['calib_wall_s']:.2f}, "
+          f"fisher_wall_s {st['fisher_wall_s']:.2f}, calib_iters_per_s "
+          f"{st['calib_iters_per_s']:.1f}, calib_peak_bytes {st['calib_peak_bytes']} "
+          f"(device peak {peak} B); wall {wall:.2f}s")
+    print(f"[whisper] {len(units)} units, the boundary after {walker.block_path(walker.enc_n - 1)}"
+          f"; fakequant launches {launches} (expected {expect}); shadowed calls "
+          f"{shadow['calls']}, mismatches {shadow['mismatches']}; unit retries "
+          f"{st['unit_retries']}, fallbacks {st['unit_fallbacks']}, OOM halvings "
+          f"{st['unit_oom_halvings']}")
+    if units != [[i] for i in range(2 * cfg.n_layers)] or walker.enc_n != cfg.n_layers:
+        fail(f"whisper's units are not its {cfg.n_layers} encoder then {cfg.n_layers} "
+             f"decoder blocks: {units}")
+    if launches != expect:
+        fail(f"whisper calibration launched fakequant {launches} times, expected {expect}")
+    if any(others.values()):
+        fail(f"whisper calibration launched packed-matmul kernels: {others}")
+    if shadow["mismatches"] or shadow["calls"] != launches:
+        fail(f"fakequant against its plain version during whisper calibration: {shadow}")
+    for u in st["units"]:
+        print(f"[whisper] unit {u['unit']} {walker.block_path(u['unit'][0])}: "
+              f"{u['paths']} weights, rtn_recon_mse {u['rtn_recon_mse']:.4e} "
+              f"final_recon_mse {u['final_recon_mse']:.4e} retries {u['retries']} "
+              f"fallback {u['fallback']} opt_wall_s {u['opt_wall_s']:.2f}")
+
+    # quality gates on held-out sequences: logits and the last encoder
+    # block's output (before the encoder's norm) against FP
+    weights = reconstruction.enumerate_weights(
+        model, params, {k: t[:1] for k, t in held.items()})
+    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
+    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
+
+    def encoded(p):
+        x, ctx = walker.stem(p, held)
+        for bi in range(walker.enc_n):
+            x = walker.apply_block(p, bi, x, ctx)
+        return x
+
+    with torch.no_grad():
+        fp = model.forward(params, held)[0]
+        e_fp = encoded(params)
+        v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
+        rtn_params = reconstruction.bake(model, params, blocks, v_rtn, embed)
+        del v_rtn, weights
+        mse = {"brecq": _logits_mse(torch, model, fp, held, res.params_q),
+               "rtn": _logits_mse(torch, model, fp, held, rtn_params),
+               "fp_mean_square": float(torch.mean(fp ** 2)),
+               "encoder_brecq": float(torch.mean((encoded(res.params_q) - e_fp) ** 2)),
+               "encoder_rtn": float(torch.mean((encoded(rtn_params) - e_fp) ** 2)),
+               "encoder_fp_mean_square": float(torch.mean(e_fp ** 2))}
+    del rtn_params, fp, e_fp
+    print(f"[whisper] held-out logits MSE vs FP ({HELDOUT_SEQS}x{CALIB_LEN} over "
+          f"{WHISPER_FRAMES} frames): BRECQ-W4 {mse['brecq']:.4e}, RTN-W4 "
+          f"{mse['rtn']:.4e} (ratio {mse['brecq'] / mse['rtn']:.4f}; FP logits mean "
+          f"square {mse['fp_mean_square']:.4e}); last encoder block's output MSE vs FP: "
+          f"BRECQ-W4 {mse['encoder_brecq']:.4e}, RTN-W4 {mse['encoder_rtn']:.4e} (ratio "
+          f"{mse['encoder_brecq'] / mse['encoder_rtn']:.4f}; FP mean square "
+          f"{mse['encoder_fp_mean_square']:.4e})")
+    if not all(math.isfinite(x) for x in mse.values()) or mse["brecq"] >= mse["rtn"]:
+        fail(f"whisper BRECQ-W4 logits are not closer to FP than RTN-W4's: {mse}")
+    if mse["encoder_brecq"] >= mse["encoder_rtn"]:
+        fail(f"whisper BRECQ-W4's last encoder block is not closer to FP than RTN-W4's: "
+             f"{mse}")
+
+    # export, save, verified load: the block weights are params_q bit for bit
+    art_dir = workdir / "whisper_w4"
+    t0 = time.perf_counter()
+    export(model, res).save(str(art_dir))
+    art = QuantizedArtifact.load(str(art_dir), verify=True).to("cuda")
+    serve._check_manifest(art.manifest, cfg)
+    for path in blocks:
+        sname, ri = path.split("/")[0].rsplit(".", 1)
+        node, qnode = art.params[sname], res.params_q[sname]
+        for k in path.split("/")[1:]:
+            node, qnode = node[k], qnode[k]
+        want = qnode["w"][int(ri)]
+        if not torch.equal(dequant_leaf(node["w"][int(ri)], node["qscale"][int(ri)],
+                                        want.shape[0]), want):
+            fail(f"the loaded whisper artifact's {path} differs from params_q")
+    for key in ("enc_pos", "enc_norm"):
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(art.params[key]),
+                                                     tree_leaves(res.params_q[key])))
+        if not same:
+            fail(f"the whisper artifact's {key} is not the model's")
+    print(f"[whisper] artifact {art.nbytes()} B ({art.manifest['family']}) exported, "
+          f"saved and loaded verified in {time.perf_counter() - t0:.1f}s; the "
+          f"{len(blocks)} block weights equal params_q bit for bit")
+    del res, params
+    torch.cuda.empty_cache()
+
+    # the fixed batch from the packed artifact: K2 over the encoder and
+    # the prompt, K1 on every decode step
+    prompts = corpus.sample(8, 64, seed=7)
+    batch = _with_frames(torch, gen, {"tokens": torch.from_numpy(prompts)}, cfg.d_model)
+    qmm_ops.reset_tier_counts()
+    (gen_toks, sst), served, bodies = _counted({"qmatmul": qm_kernel}, lambda:
+                                               serve.run_prefill_decode(
+        model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
+        hook=art.hook(), tag="whisper W4"))
+    if (served["qgemv"] == 0 or served["qmatmul"] == 0
+            or bodies["qgemv"]["gemv_tc"] != served["qgemv"]
+            or bodies["qmatmul"]["tc"] != served["qmatmul"]):
+        fail(f"serving whisper missed a kernel or left the tensor-core bodies: "
+             f"{served}, {bodies}")
+    err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen_toks,
+                                       "whisper W4")
+    hook = art.hook()
+    with torch.inference_mode():
+        qmm_ops.reset_tier_counts()
+        qm_kernel.reset_launches()
+        memory = model.encode(art.params, batch["frames"], hook)
+        enc_k = (dict(qm_kernel.LAUNCHES), dict(qmm_ops.TIER_COUNTS))
+        cache = model.init_cache(8, 65, torch.float32, "cuda")
+        logits, cache = model.prefill(art.params, {"tokens": batch["tokens"],
+                                                   "memory": memory}, cache, hook)
+        qmm_ops.reset_tier_counts()
+        qm_kernel.reset_launches()
+        model.decode_step(art.params, logits.argmax(-1)[:, None].to(torch.int32), cache,
+                          torch.full((8,), 64, dtype=torch.int32, device="cuda"), hook)
+        dec_k = (dict(qm_kernel.LAUNCHES), dict(qmm_ops.TIER_COUNTS))
+        other = dict(batch, frames=torch.randn(batch["frames"].shape, generator=gen,
+                                               device="cuda"))
+        cache = model.init_cache(8, 65, torch.float32, "cuda")
+        moved = float((model.prefill(art.params, other, cache, hook)[0] - logits)
+                      .abs().max())
+    n_enc, n_dec = 6 * cfg.n_layers, 8 * cfg.n_layers + 1
+    print(f"[whisper serve] kernel launches {served}, bodies {bodies['qmatmul']} / "
+          f"{bodies['qgemv']}; the encoder alone (M {8 * WHISPER_FRAMES}): launches "
+          f"{enc_k[0]}, tiers {enc_k[1]}; one decode step: launches {dec_k[0]}, tiers "
+          f"{dec_k[1]}; logits kernel vs plain: max abs err {err:.3e} (tol {tol:.3e}); "
+          f"greedy token agreement {agree:.4f}; redrawn frames move the logits by "
+          f"{moved:.3e} (over {MEMORY_MOVES['whisper'] * tol:.3e}); prefill "
+          f"{sst['prefill_tok_s']:.1f} "
+          f"tok/s, decode {sst['tok_s']:.1f} tok/s")
+    if (enc_k[0]["qmatmul"] != n_enc or enc_k[1]["prefill"] != n_enc
+            or enc_k[0]["qgemv"] or enc_k[1]["decode"]):
+        fail(f"whisper's encoder did not run its {n_enc} matmuls on K2: {enc_k}")
+    if (dec_k[0]["qgemv"] != n_dec or dec_k[1]["decode"] != n_dec
+            or dec_k[0]["qmatmul"] or dec_k[1]["prefill"]):
+        fail(f"whisper's decode step did not run its {n_dec} matmuls on K1: {dec_k}")
+    if not moved > MEMORY_MOVES["whisper"] * tol:
+        fail(f"whisper's logits hardly move when the frames are redrawn: {moved:.3e}")
+    del art, memory, cache
+    torch.cuda.empty_cache()
+    keep = ("calib_wall_s", "fisher_wall_s", "calib_iters_per_s", "calib_peak_bytes",
+            "calib_peak_bytes_detail", "unit_retries", "unit_fallbacks",
+            "unit_oom_halvings", "unit_cache")
+    return {"launches": launches, "expected_launches": expect, "shadow": shadow,
+            "stats": {k: st[k] for k in keep}, "device_peak_bytes": peak,
+            "wall_s": wall, "logits_mse": mse,
+            "units": [{k: u[k] for k in ("unit", "paths", "rtn_recon_mse",
+                                         "final_recon_mse", "retries", "fallback",
+                                         "opt_wall_s")} for u in st["units"]],
+            "serve": {"launches": served, "bodies": bodies, "logits_max_abs_err": err,
+                      "logits_tol": tol, "token_agreement": agree, "stats": sst,
+                      "encoder_launches": enc_k, "decode_step_launches": dec_k,
+                      "frames_redrawn_max_abs": moved},
+            "phase_wall_s": time.perf_counter() - t_phase}
+
+
+def phase_vlm(torch, qm_kernel, serve, workdir: Path) -> dict:
+    """llama-3.2-vision-90b at full width, cut to one group of VLM_LAYERS
+    (4 self-attention layers and the gated cross-attention layer), every
+    gate at XGATE: RTN W4 packed on the card, a fixed batch of 8 x 64 prompt
+    + 32 generated tokens with 1,024 patches an image through K1/K2 (the
+    MLP's 8,192 x 28,672 on K1 at every decode step), replayed by the plain
+    path; the logits move when the patches are redrawn."""
+    from repro_torch.data import Corpus, CorpusConfig
+    from repro_torch.deploy import rtn_artifact, tree_bytes
+    from repro_torch.models import build_model, get_config
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama32_vision_90b"), n_layers=VLM_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = _open_gates(model.init(gen))
+    fp_bytes = tree_bytes(params)
+    art = rtn_artifact(params, 4, None, cfg=cfg)
+    del params
+    torch.cuda.empty_cache()
+    art_bytes = art.nbytes()
+    print(f"[vlm] {cfg.name} at full width (d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"over {cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), {VLM_LAYERS} "
+          f"layers ({VLM_LAYERS - 1} self-attention + 1 cross-attention): W4 artifact "
+          f"{art_bytes} B vs fp {fp_bytes} B, made on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    prompts = Corpus(CorpusConfig(vocab=cfg.vocab)).sample(8, 64, seed=7)
+    batch = {"tokens": torch.from_numpy(prompts).cuda(),
+             "patches": torch.randn((8, cfg.n_patches, cfg.d_model), generator=gen,
+                                    device="cuda")}
+    shapes: dict = {}
+    with _shapes_logged(qm_kernel, shapes):
+        (gen_toks, sst), served, bodies = _counted({"qmatmul": qm_kernel}, lambda:
+                                                   serve.run_prefill_decode(
+            model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
+            hook=art.hook(), tag="vlm W4"))
+    mlp = shapes.get(("qgemv", 8, cfg.d_model, cfg.d_ff), 0)
+    xkv = shapes.get(("qmatmul", 8 * cfg.n_patches, cfg.d_model, cfg.n_kv_heads * cfg.hd), 0)
+    if (served["qgemv"] == 0 or served["qmatmul"] == 0
+            or bodies["qgemv"]["gemv_tc"] != served["qgemv"]
+            or bodies["qmatmul"]["tc"] != served["qmatmul"]):
+        fail(f"serving the VLM missed a kernel or left the tensor-core bodies: "
+             f"{served}, {bodies}")
+    # w_gate and w_up of every layer at the warm-up and the 31 timed decode steps
+    if mlp != 2 * VLM_LAYERS * 32:
+        fail(f"K1 ran {mlp} times on {cfg.d_model} x {cfg.d_ff}, not "
+             f"{2 * VLM_LAYERS * 32}")
+    err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen_toks, "vlm W4")
+    with torch.inference_mode():
+        logits = [model.prefill(art.params, b, model.init_cache(
+            8, 65, torch.float32, "cuda"), art.hook())[0]
+            for b in (batch, dict(batch, patches=torch.randn(
+                batch["patches"].shape, generator=gen, device="cuda")))]
+    moved = float((logits[0] - logits[1]).abs().max())
+    print(f"[vlm serve] kernel launches {served}, bodies {bodies['qmatmul']} / "
+          f"{bodies['qgemv']}; K1 on {cfg.d_model}x{cfg.d_ff} {mlp} times, K2 on the "
+          f"cross-attention K/V over {8 * cfg.n_patches} patch rows {xkv} times; logits "
+          f"kernel vs plain: max abs err {err:.3e} (tol {tol:.3e}); greedy token "
+          f"agreement {agree:.4f}; redrawn patches move the logits by {moved:.3e} "
+          f"(over {MEMORY_MOVES['vlm'] * tol:.3e}); prefill {sst['prefill_tok_s']:.1f} "
+          f"tok/s, decode "
+          f"{sst['tok_s']:.1f} tok/s; device peak {torch.cuda.max_memory_allocated()} B")
+    if not moved > MEMORY_MOVES["vlm"] * tol:
+        fail(f"the VLM's logits hardly move when the patches are redrawn: {moved:.3e}")
+    del art, batch, logits
+    torch.cuda.empty_cache()
+    return {"launches": served, "bodies": bodies, "stats": sst,
+            "shape_launches": {f"{n} M={m} {k}x{nn}": c for (n, m, k, nn), c in shapes.items()},
+            "logits_max_abs_err": err, "logits_tol": tol, "token_agreement": agree,
+            "patches_redrawn_max_abs": moved, "artifact_bytes": art_bytes,
+            "fp_bytes": fp_bytes, "phase_wall_s": time.perf_counter() - t_phase}
+
+
+def _family_streams(cfg, n: int, seed: int) -> list:
+    """``n`` engine streams: arrivals over 4n ticks, prompts of
+    DENSE_PROMPTS tokens from the corpus, 16-32 generated."""
+    import numpy as np
+
+    from repro_torch.data import Corpus, CorpusConfig
+
+    rng = np.random.default_rng(seed)
+    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
+    arrivals = sorted(int(a) for a in rng.integers(0, 4 * n, n))
+    plens = rng.integers(DENSE_PROMPTS[0], DENSE_PROMPTS[1] + 1, n)
+    gens = rng.integers(16, 33, n)
+    return [(arrivals[i], corpus.sample(1, int(plens[i]), seed=seed + i)[0], int(gens[i]))
+            for i in range(n)]
+
+
+def _dense_engine(torch, serve, kernels, arch: str, n_layers: int, body: str) -> dict:
+    """One dense config at full width through the continuous-batching
+    engine over an int8 page pool: RTN W4 on the card, 8 slots, 16 staggered
+    streams; every kernel launched, every kv_decode launch on the paged
+    entry and ``body``, shadowed by its plain version; kernel vs plain logits
+    within ENGINE_LOGIT_TOL of max |logit|; staggered == sequential."""
+    import numpy as np
+
+    from repro_torch.deploy import rtn_artifact, tree_bytes
+    from repro_torch.models import build_model, get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    if n_layers != cfg.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    model = build_model(cfg)
+    params = engine_params(torch, model)
+    fp_bytes = tree_bytes(params)
+    art = rtn_artifact(params, 4, None, cfg=cfg)
+    del params
+    torch.cuda.empty_cache()
+    args = serve.parse_args(["--arch", arch, "--engine", "--quant", "4", "--batch", "8",
+                             "--prompt-len", str(DENSE_PROMPTS[1]), "--gen-len", "32",
+                             "--kv-dtype", "int8", "--seed", "0"])
+    streams = _family_streams(cfg, DENSE_ENGINE_STREAMS, 0)
+    shadow = {"calls": 0, "max_abs_err": 0.0, "worst_err_over_tol": 0.0}
+    with _attend_wrapped(_shadowed(shadow)):
+        kern, launches, bodies = _counted(kernels, lambda: _engine(
+            serve, model, art, args, streams, "cuda"))
+    m = kern.metrics()
+    entries = bodies["kv_decode_entry"]
+    distinct = sorted(len(set(t)) for t in _tokens(kern).values())
+    print(f"[dense {arch}] {cfg.n_layers} layers at full width (d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.hd}, vocab {cfg.vocab}): W4 "
+          f"{art.nbytes()} B vs fp {fp_bytes} B; engine kernel launches {launches}, "
+          f"kv_decode bodies {bodies['kv_decode']}, entries {entries}, splits "
+          f"{bodies['kv_decode_split']}; {m['tokens_generated']} tokens in "
+          f"{m['wall_s']:.2f}s ({m['sustained_tok_s']:.1f} tok/s sustained, "
+          f"{m['ticks']} ticks), occupancy {m['mean_slot_occupancy']:.3f}; kv_decode vs "
+          f"plain on the engine's inputs: {shadow['calls']} calls, worst err/tol "
+          f"{shadow['worst_err_over_tol']:.3f}; distinct tokens per stream {distinct}")
+    if min(launches[k] for k in ("qgemv", "qmatmul", "kv_decode")) == 0:
+        fail(f"the {arch} engine did not launch every kernel: {launches}")
+    if (bodies["qgemv"]["gemv_tc"] != launches["qgemv"]
+            or bodies["qmatmul"]["tc"] != launches["qmatmul"]):
+        fail(f"the {arch} engine left the tensor-core bodies: {bodies}")
+    if (bodies["kv_decode"][body] != launches["kv_decode"]
+            or entries["paged"] != launches["kv_decode"]):
+        fail(f"the {arch} engine's decode reads did not all take the paged entry's "
+             f"{body} body: {bodies['kv_decode']}, {entries}")
+    if {r.state for r in kern.requests.values()} != {"done"}:
+        fail(f"{arch} engine requests did not all finish")
+    if shadow["calls"] == 0 or shadow["worst_err_over_tol"] > 1.0:
+        fail(f"{arch} kv_decode vs its plain version on the engine's pool: {shadow}")
+    if np.median(distinct) < MIN_DISTINCT_TOKENS:
+        fail(f"the {arch} streams' greedy tokens hardly vary ({distinct})")
+    vs_plain = _agree(kern, _engine(serve, model, art, args, streams, "torch"))
+    tol = ENGINE_LOGIT_TOL * vs_plain["max_abs"]
+    print(f"[dense {arch}] {_say('kernel vs plain path, int8 pool', vs_plain)} (limit "
+          f"{tol:.3e})")
+    if vs_plain["max_abs_err"] > tol:
+        fail(f"{arch} engine logits, kernel vs plain: {vs_plain['max_abs_err']:.3e} > "
+             f"{tol:.3e}")
+    if vs_plain["steps"] < MIN_STEPS_SHARED * vs_plain["of"]:
+        fail(f"{arch} engine: only {vs_plain['steps']} of {vs_plain['of']} steps on a "
+             f"shared token history")
+    four = streams[:4]
+    stag = _engine(serve, model, art, args, four, "cuda")
+    seq = _engine(serve, model, art, args, four, "cuda", sequential=True)
+    ls, lq = _logits(stag), _logits(seq)
+    if not (all(np.array_equal(ls[u], lq[u]) for u in ls)
+            and _tokens(stag) == _tokens(seq)):
+        fail(f"{arch} engine: staggered and sequential serving of 4 streams differ")
+    print(f"[dense {arch}] staggered == sequential for 4 streams: tokens and logits "
+          f"bit-identical ({stag.metrics()['ticks']} vs {seq.metrics()['ticks']} ticks)")
+    del art, kern, stag, seq
+    torch.cuda.empty_cache()
+    return {"launches": launches, "bodies": bodies, "metrics": m,
+            "kv_decode_on_engine_inputs": shadow, "kernel_vs_plain_int8": vs_plain,
+            "logits_limit": tol, "distinct_tokens_per_stream": distinct,
+            "fp_bytes": fp_bytes, "phase_wall_s": time.perf_counter() - t_phase}
+
+
+def phase_dense_cfgs(torch, serve, kernels) -> dict:
+    """h2o-danube3-4b at full width and depth and gemma3-12b at full width
+    (one local:global group) through the engine: K4's paged entry on its
+    8-byte body at hd 120 and its 16-byte body at hd 256."""
+    return {"h2o_danube3_4b": _dense_engine(torch, serve, kernels, "h2o_danube3_4b",
+                                            24, "v8"),
+            "gemma3_12b": _dense_engine(torch, serve, kernels, "gemma3_12b",
+                                        GEMMA_LAYERS, "v16")}
+
+
 TIMED_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms")
 
 
@@ -1941,7 +2504,7 @@ def _layer(rows, shapes, **sel) -> dict:
 
 
 def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
-                long_engine, calib_moe, mixed) -> dict:
+                long_engine, calib_moe, mixed, family) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
@@ -1962,7 +2525,12 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     serving under ``--budget-decode-ms``; qmatmul_grouped's serving the
     calibrated MoE artifact; fakequant's in the MoE calibration (on stacks
     of experts apart, with its time at one expert leaf) and in the mixed
-    phase."""
+    phase. The attention families' paths stand beside too (``family``):
+    every kernel's launches serving whisper-small, the VLM and the dense
+    engines, fakequant's calibrating whisper, and the times at their new
+    shapes (qgemv ``vlm_mlp_*`` on 8,192 x 28,672; qmatmul ``whisper_enc_*``
+    at M 12,000 and ``vlm_xkv_*`` at M 8,192, K 8,192; kv_decode
+    ``danube_*`` and ``gemma3_*`` on the paged entry)."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
             "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
@@ -1987,6 +2555,7 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
             big = _layer(rows, SLICE_SHAPES, kernel=name, bits=4, group=None, M=512)
             entry.update({f"m512_{k}": big[k] for k in (*TIMED_KEYS, "bound_by")})
             entry["m512_body"] = big["bodies"]
+        entry.update(_family_fields(family, name))
         out.append(entry)
     t = kv_timed["paged"]
     kv = {
@@ -2013,6 +2582,7 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     kv.update({"long_engine_launches": long_engine["launches"]["kv_decode"],
                "long_engine_entry_launches": long_engine["bodies"]["kv_decode_entry"],
                "long_engine_split_launches": long_engine["bodies"]["kv_decode_split"]})
+    kv.update(_family_fields(family, "kv_decode"))
     out.append(kv)
     dec = _layer(moe["rows"], MOE_SHAPES, M=8)
     pre = _layer(moe["rows"], MOE_SHAPES, M=64)
@@ -2051,9 +2621,39 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
         "moe_launches": calib_moe["launches"],
         "moe_expert_launches": calib_moe["view_launches"]["experts"],
         "mixed_launches": sum(mixed["fq_launches"].values()),
+        "whisper_launches": family["whisper"]["launches"],
         **{f"experts_{k}": fq["experts"][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
     return {"kernels": out}
+
+
+def _family_fields(family, name) -> dict:
+    """One kernel's added fields from the attention families' paths: its
+    launches on each (the kernel entry's body counts for the dense
+    engines' kv_decode), and its times at the shapes they gave it."""
+    dense = family["dense"]
+    out = {"family_max_abs_err": family["kernels"]["errs"][name]}
+    if name == "kv_decode":
+        for arch, d in dense.items():
+            out[f"{arch}_engine_launches"] = d["launches"]["kv_decode"]
+            out[f"{arch}_engine_body_launches"] = d["bodies"]["kv_decode"]
+            out[f"{arch}_engine_entry_launches"] = d["bodies"]["kv_decode_entry"]
+        labels = ("danube", "gemma3")
+    else:
+        out["whisper_launches"] = family["whisper"]["serve"]["launches"][name]
+        out["vlm_launches"] = family["vlm"]["launches"][name]
+        for arch, d in dense.items():
+            out[f"{arch}_engine_launches"] = d["launches"][name]
+        labels = ("vlm_mlp",) if name == "qgemv" else ("whisper_enc", "vlm_xkv")
+    for label in labels:
+        row = family["kernels"]["rows"][label]
+        out.update({f"{label}_{k}": row.get(k) for k in
+                    ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "body")})
+        out[f"{label}_shape"] = (f"B={row['B']} H={row['H']} K={row['K']} hd={row['hd']} "
+                                 f"S={row['S']} in pages of {row['page_size']}"
+                                 if name == "kv_decode" else
+                                 f"M={row['M']} K={row['K']} N={row['N']} W{row['bits']}")
+    return out
 
 
 def main(argv=None) -> None:
@@ -2098,6 +2698,12 @@ def main(argv=None) -> None:
         del reuse
         calib_moe = phase_calib_moe(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
         fq_experts = _time_fq_experts(torch, fq_kernel, fq_ref)
+        family = {"kernels": phase_family_kernels(torch, kernel, ref, pack, kv_kernel,
+                                                  kv_ref)}
+        family["whisper"] = phase_whisper(torch, fq_kernel, fq_ref, kernel, serve,
+                                          Path(tmp))
+        family["vlm"] = phase_vlm(torch, kernel, serve, Path(tmp))
+        family["dense"] = phase_dense_cfgs(torch, serve, kernels)
 
     line = kernel_line(errs, rows, kv_err, kv_timed, launches, bodies,
                        {"err": moe_err, "rows": moe_rows,
@@ -2105,7 +2711,7 @@ def main(argv=None) -> None:
                         "bodies": moe["fixed"]["bodies"]},
                        {"err": fq_err, "rows": fq_rows, "launches": calib["launches"],
                         "experts": fq_experts},
-                       long_engine, calib_moe, mixed)
+                       long_engine, calib_moe, mixed, family)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -2120,6 +2726,7 @@ def main(argv=None) -> None:
              "moe_timings": moe_rows,
              "moe": moe, "fakequant_timings": fq_rows, "calib": calib,
              "mixed": mixed, "calib_moe": calib_moe, "fakequant_experts": fq_experts,
+             "family": family,
              "kernels": line["kernels"],
              "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"[wall] wall_s {time.perf_counter() - t_start:.1f}")

@@ -125,9 +125,13 @@ class FisherStream:
 
 
 def _eps_zero_for(walker, params, batch: dict, bi: int) -> torch.Tensor:
-    """Zero perturbation with the shape of block ``bi``'s output."""
+    """Zero perturbation with the shape of block ``bi``'s output (a
+    decoder block's for an encoder-decoder model past the boundary)."""
     with torch.no_grad():
         x0, _ = walker.stem(params, batch)
+    if walker.encdec and bi >= walker.enc_n:
+        B, S = batch["tokens"].shape
+        return torch.zeros((B, S, x0.shape[-1]), dtype=x0.dtype, device=x0.device)
     return torch.zeros_like(x0)
 
 
@@ -139,6 +143,9 @@ def _zero_eps(walker, params, batch: dict) -> list[torch.Tensor]:
         for bi in range(len(walker.blocks())):
             eps.append(torch.zeros_like(x))
             x = walker.apply_block(params, bi, x, ctx)
+            if walker.encdec and bi == walker.enc_n - 1:
+                memory, x = walker.boundary_transition(params, batch, x)
+                ctx = walker.ctx_for(batch, bi + 1, memory)
     return eps
 
 

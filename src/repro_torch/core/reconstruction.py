@@ -6,7 +6,7 @@ The port of the JAX package's ``repro.core.reconstruction``. Pipeline:
      calibration batch (epsilon trick), the diagonal Fisher at every
      block output.
   3. Partition blocks into reconstruction units: layer / block / stage /
-     net (Sec. 3.2).
+     net (Sec. 3.2). Units never cross the enc->dec boundary.
   4. Per unit: optimize AdaRound logits (+ LSQ activation step sizes)
      with Adam on the Fisher-weighted output MSE + beta-annealed rounding
      regularizer. Inputs come from the quantized stream; targets from the
@@ -18,10 +18,13 @@ Everything runs where the params are (``interop.params_from_numpy(...,
 device=)``); the calibration batches are moved there. The hardened
 forward and ``bake`` run K5 (``kernels/fakequant``) on the card, the
 MoE experts' stacked (E, K, N) weights included. The port builds the
-dense and MoE families (a MoE unit spans the ``dense0`` and ``moe``
-stacks through the same walker; the router's aux loss is dropped, as in
-JAX); the other families raise ``NotImplementedError`` when their model
-is built.
+dense, MoE, VLM and encoder-decoder families (a MoE unit spans the
+``dense0`` and ``moe`` stacks through the same walker, and the router's
+aux loss is dropped, as in JAX; a VLM unit's cross-attention reads
+``batch["patches"]``; an encoder-decoder model runs its encoder units,
+then the boundary, the encoder's norm and the token embedding, in f32,
+then its decoder units over the memory); the recurrent families raise
+``NotImplementedError`` when their model is built.
 """
 from __future__ import annotations
 
@@ -55,17 +58,27 @@ def _layer_params(params, stack, ri: int):
 # ---------------------------------------------------------------------------
 
 
+def _positions(seqs: torch.Tensor) -> torch.Tensor:
+    B, S = seqs.shape[:2]
+    return torch.arange(S, dtype=torch.int32, device=seqs.device).expand(B, S)
+
+
 class Walker:
-    """Sequential execution of a model's block graph (decoder-only: the
-    port builds no encoder-decoder model yet, so there is no boundary)."""
+    """Sequential execution of a model's block graph: an encoder-decoder
+    model's encoder blocks, then its decoder blocks (``enc_n`` the
+    boundary), else the model's stacks in order."""
 
     def __init__(self, model):
         self.model = model
-        self.encdec = False
-        self.enc_n = 0
+        self.encdec = hasattr(model, "enc_stack")
+        self.enc_n = self.model.enc_stack.n if self.encdec else 0
 
     def blocks(self) -> list[tuple[Any, int]]:
-        return [(s, i) for s in self.model.stacks for i in range(s.n)]
+        if self.encdec:
+            stacks = [self.model.enc_stack, self.model.dec_stack]
+        else:
+            stacks = self.model.stacks
+        return [(s, i) for s in stacks for i in range(s.n)]
 
     def block_path(self, bi: int) -> str:
         stack, ri = self.blocks()[bi]
@@ -73,20 +86,41 @@ class Walker:
 
     def stem(self, params, batch, quant=NO_QUANT):
         """Activations entering block 0 (+ its ctx)."""
+        if self.encdec:
+            frames = batch["frames"]
+            ctx = Ctx(cfg=self.model.cfg, positions=_positions(frames), quant=quant)
+            return frames + params["enc_pos"][:frames.shape[1]], ctx
         return self.model.begin(params, batch, quant)
 
     def ctx_for(self, batch, bi: int, memory, quant=NO_QUANT) -> Ctx:
-        """Ctx entering block ``bi``."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        pos = torch.arange(S, dtype=torch.int32, device=tokens.device).expand(B, S)
-        return Ctx(cfg=self.model.cfg, positions=pos, quant=quant)
+        """Ctx entering block ``bi`` given the stream's encoder memory."""
+        cfg = self.model.cfg
+        if self.encdec and bi < self.enc_n:
+            return Ctx(cfg=cfg, positions=_positions(batch["frames"]), quant=quant)
+        ctx = Ctx(cfg=cfg, positions=_positions(batch["tokens"]), quant=quant)
+        if self.encdec:
+            ctx.extras["memory"] = memory
+        elif cfg.family == "vlm":
+            ctx.extras["memory"] = batch["patches"]
+        return ctx
 
     def apply_block(self, params, bi: int, x, ctx, quant=NO_QUANT):
         stack, ri = self.blocks()[bi]
         ctx2 = dataclasses.replace(ctx, quant=quant, scope=self.block_path(bi))
         y, _ = self.model.apply_block(ctx2, stack, _layer_params(params, stack, ri), x)
         return y
+
+    def boundary_transition(self, params, batch, x, quant=NO_QUANT):
+        """The encoder's output -> (memory, the decoder's stem x)."""
+        from ..models import common as cm
+        from ..models.transformer import _norm
+
+        memory = _norm(self.model.cfg, params["enc_norm"], x)
+        ctx = Ctx(cfg=self.model.cfg, positions=_positions(batch["tokens"]),
+                  quant=quant if quant is not None else NO_QUANT)
+        # embed_lookup (not a raw table gather) so a packed int8 table
+        # from a deployment artifact dequantizes here too
+        return memory, cm.embed_lookup(ctx, params["embed"], batch["tokens"])
 
     def run(self, params, batch, quant=NO_QUANT, eps: Optional[list] = None):
         """Full forward block-by-block (eval and the Fisher pass). ``eps``
@@ -97,6 +131,9 @@ class Walker:
             x = self.apply_block(params, bi, x, ctx, quant)
             if eps is not None and eps[bi] is not None:
                 x = x + eps[bi]
+            if self.encdec and bi == self.enc_n - 1:
+                memory, x = self.boundary_transition(params, batch, x, quant)
+                ctx = self.ctx_for(batch, bi + 1, memory, quant)
         return self.model.finish(params, x, ctx)
 
     def loss(self, params, batch, quant=NO_QUANT, eps=None):
@@ -258,7 +295,10 @@ def _partition(walker: Walker, rc: ReconConfig) -> list[list[int]]:
 
 
 def _segments(walker: Walker) -> list[list[int]]:
-    return [list(range(len(walker.blocks())))]
+    nb = len(walker.blocks())
+    if walker.encdec:
+        return [list(range(walker.enc_n)), list(range(walker.enc_n, nb))]
+    return [list(range(nb))]
 
 
 def _nbytes(a: Optional[torch.Tensor]) -> int:
@@ -275,8 +315,8 @@ def quantize(model, params, calib_batches: list[dict], rc: ReconConfig, *,
     """Run BRECQ calibration (paper Alg. 1) and return quantized params.
 
     Args:
-      model: a dense or MoE model exposing ``begin`` / ``apply_block`` /
-        ``finish``.
+      model: a model exposing ``begin`` / ``apply_block`` / ``finish``
+        (dense, MoE, VLM, or an ``EncDecLM`` walked encoder first).
       params: FP parameters (never mutated); calibration runs on their
         device.
       calib_batches: list of calibration batches, concatenated into one
@@ -348,6 +388,8 @@ def quantize(model, params, calib_batches: list[dict], rc: ReconConfig, *,
         # everything a restart cannot recompute comes from the journal
         start_unit = snap["next_unit"]
         x_fp, x_q = snap["x_fp"].to(device), snap["x_q"].to(device)
+        mem_fp, mem_q = (None if m is None else m.to(device)
+                         for m in (snap["mem_fp"], snap["mem_q"]))
         v_all = {k: v.to(device) for k, v in snap["v_all"].items()}
         s_all = {k: v.to(device) for k, v in snap["s_all"].items()}
         stats["units"] = [_revive_unit_stat(u) for u in snap["unit_stats"]]
@@ -378,8 +420,20 @@ def quantize(model, params, calib_batches: list[dict], rc: ReconConfig, *,
             v_all.update(v_u)
             s_all.update(s_u)
             stats["units"].append(ustat)
+            # enc->dec boundary between units (computed in f32, stored
+            # back in the stream dtype)
+            if walker.encdec and max(unit) == walker.enc_n - 1:
+                with torch.no_grad():
+                    mem_fp, x_fp = walker.boundary_transition(
+                        params, calib, x_fp.to(torch.float32))
+                    mem_q, x_q = walker.boundary_transition(
+                        params, calib, x_q.to(torch.float32), q_stem_hook)
+                mem_fp, x_fp = mem_fp.to(sdtype), x_fp.to(sdtype)
+                mem_q, x_q = mem_q.to(sdtype), x_q.to(sdtype)
             wd.stop(ui)
             if journal is not None:
+                # snapshot after the boundary, so a resume starts where
+                # this iteration left off
                 journal.save(ui + 1, x_fp, x_q, mem_fp, mem_q, v_all, s_all,
                              stats["units"], stream_peak)
                 if shutdown.requested and ui + 1 < len(units):
@@ -483,7 +537,8 @@ def _unit_pieces(walker, params, unit: list[int]):
         stack, ri = walker.blocks()[bi]
         bparams.append(_layer_params(params, stack, ri))
         stackdefs.append(stack)
-    return tuple(bparams), tuple(stackdefs), False
+    is_dec = bool(walker.encdec and min(unit) >= walker.enc_n)
+    return tuple(bparams), tuple(stackdefs), is_dec
 
 
 def _clone(tree):
@@ -502,8 +557,9 @@ def _reconstruct_unit(model, walker, params, weights, calib, unit, x_fp, x_q,
     bparams, stackdefs, is_dec = _unit_pieces(walker, params, unit)
 
     b1 = _slice_batch(calib, slice(0, 1))
+    m1 = mem_q[:1] if mem_q is not None else None
     probe = calib_loop.get_unit_probe(model, walker, stackdefs, is_dec,
-                                      bparams, x_q[:1], b1, None)
+                                      bparams, x_q[:1], b1, m1)
     wpaths = [p for p in map(uncanon, probe.wpaths) if p in qstates]
 
     c_of = {p: canon(p) for p in wpaths}
@@ -530,7 +586,7 @@ def _reconstruct_unit(model, walker, params, weights, calib, unit, x_fp, x_q,
     s0 = {}
     act_of = {}
     if rc.a_bits is not None:
-        for cp, a in probe.acts(bparams, x_q[:1], b1, None).items():
+        for cp, a in probe.acts(bparams, x_q[:1], b1, m1).items():
             act_of[uncanon(cp)] = cp
             s0[cp] = lsq.init_act_scale(a, rc.a_bits, symmetric=True)
     opt0 = {"v": v0, "s": s0}  # the RTN start point, never updated in place
@@ -638,7 +694,7 @@ def _reconstruct_layerwise(model, walker, params, weights, calib, bi, x_fp, x_q,
     N = calib["tokens"].shape[0]
     probe = calib_loop.get_unit_probe(
         model, walker, stackdefs, is_dec, bparams, x_q[:1],
-        _slice_batch(calib, slice(0, 1)), None)
+        _slice_batch(calib, slice(0, 1)), mem_q[:1] if mem_q is not None else None)
     wpaths = [p for p in map(uncanon, probe.wpaths) if p in qstates]
     c_of = {p: canon(p) for p in wpaths}
     cfgs = {c_of[p]: qstates[p][1] for p in wpaths}

@@ -145,5 +145,7 @@ def measure(model, params, calib_batches, results: dict[int, PTQResult],
             offdiag[(p1, p2)] = joint - diag[(p1, pair_bits)] - diag[(p2, pair_bits)]
 
         x_fp = z_fp
+        if walker.encdec and bi == walker.enc_n - 1:
+            mem_fp, x_fp = walker.boundary_transition(params, sub, x_fp)
 
     return SensTable(diag=diag, offdiag=offdiag, block_of=block_of, shapes=shapes)

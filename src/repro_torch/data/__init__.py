@@ -1,1 +1,1 @@
-from .synthetic import Corpus, CorpusConfig, make_batches  # noqa: F401
+from .synthetic import Corpus, CorpusConfig, arch_extras_fn, make_batches  # noqa: F401

@@ -69,3 +69,26 @@ def make_batches(corpus: Corpus, n_batches: int, batch: int, seq: int,
             b.update(extras_fn(batch, seq, start_step + i))
         out.append(b)
     return out
+
+
+def arch_extras_fn(cfg):
+    """Per-arch stub-modality extras (VLM ``patches`` / whisper ``frames``)
+    as f32 CPU tensors, value for value the JAX package's draws; ``None``
+    for the text-only archs."""
+    import torch
+
+    if cfg.family == "vlm":
+        def fn(batch, seq, step):
+            rng = np.random.default_rng(np.random.SeedSequence([7, step]))
+            return {"patches": torch.from_numpy(
+                rng.normal(size=(batch, cfg.n_patches, cfg.d_model)).astype(np.float32))}
+
+        return fn
+    if cfg.enc_dec:
+        def fn(batch, seq, step):
+            rng = np.random.default_rng(np.random.SeedSequence([11, step]))
+            return {"frames": torch.from_numpy(
+                rng.normal(size=(batch, seq, cfg.d_model)).astype(np.float32))}
+
+        return fn
+    return None

@@ -10,9 +10,12 @@ The port of the JAX package's ``repro.launch.serve``:
   2. prefill the prompt batch, 3. decode N tokens greedily,
   4. report artifact bytes vs FP, tokens/s and which qmm tiers fired.
 
-``--engine`` serves synthetic streams with staggered arrivals through the
-continuous-batching engine (``repro_torch.serve_engine``) over a paged KV
-pool instead; ``--batch`` is then the slot count.
+The fixed batch of a VLM carries its ``patches``, of an encoder-decoder
+model its ``frames`` (:func:`fixed_batch`). ``--engine`` serves synthetic
+streams with staggered arrivals through the continuous-batching engine
+(``repro_torch.serve_engine``) over a paged KV pool instead; ``--batch`` is
+then the slot count. The engine takes attention-only models: a
+cross-attention layer raises, as in the JAX package.
 
 Packed weights stay int codes on the device end to end: every linear runs
 through ``QuantHook.packed_matmul`` -> ``qmm``, which launches the CUDA
@@ -468,6 +471,26 @@ def _serve_engine(args, cfg, model, params, artifact):
             "states": {u: r.state for u, r in eng.requests.items()}}
 
 
+def fixed_batch(args, cfg) -> dict:
+    """The fixed batch's CPU tensors: ``--batch`` prompts of
+    ``--prompt-len`` tokens from the corpus (seed 7), with a VLM's
+    ``patches`` (``n_patches`` a sequence) or an encoder-decoder model's
+    ``frames`` (``--prompt-len`` a sequence), f32 normals from numpy's
+    ``default_rng(0)``: the JAX CLI's draws."""
+    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
+    batch = {"tokens": torch.from_numpy(corpus.sample(args.batch, args.prompt_len,
+                                                      seed=7))}
+    if cfg.family == "vlm":
+        rng = np.random.default_rng(0)
+        batch["patches"] = torch.from_numpy(rng.normal(
+            size=(args.batch, cfg.n_patches, cfg.d_model)).astype(np.float32))
+    if cfg.enc_dec:
+        rng = np.random.default_rng(0)
+        batch["frames"] = torch.from_numpy(rng.normal(
+            size=(args.batch, args.prompt_len, cfg.d_model)).astype(np.float32))
+    return batch
+
+
 def _serve(args, cfg, model, params, artifact, fp_bytes, device):
     if args.engine:
         if artifact is not None:
@@ -478,9 +501,7 @@ def _serve(args, cfg, model, params, artifact, fp_bytes, device):
         if artifact is not None:
             out["artifact_bytes"] = artifact.nbytes()
         return out
-    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
-    prompts = torch.from_numpy(corpus.sample(args.batch, args.prompt_len, seed=7))
-    batch = {"tokens": prompts.to(device)}
+    batch = {k: t.to(device) for k, t in fixed_batch(args, cfg).items()}
 
     if artifact is None:
         gen, stats = _run_once(model, params, batch, args, tag="fp")

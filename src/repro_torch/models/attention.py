@@ -1,11 +1,12 @@
-"""GQA / sliding-window self-attention with a dense KV cache.
+"""GQA / sliding-window / cross attention with KV caches.
 
-A single :class:`AttnSpec` covers the dense family's attention variants.
-Caches are ring buffers for windowed layers and linear buffers otherwise.
-The cache, dense or paged, is updated in place (the JAX package donates
-it to the jitted step instead); ``prefill``/``decode`` return it for
-symmetry. Cross-attention comes with the VLM and encoder-decoder
-families.
+A single :class:`AttnSpec` covers the attention variants of the dense,
+MoE, VLM and encoder-decoder families. Caches are ring buffers for
+windowed layers and linear buffers otherwise. The cache, dense or paged,
+is updated in place (the JAX package donates it to the jitted step
+instead); ``prefill``/``decode`` return it for symmetry. Cross-attention
+(``apply(kv_x=)``, ``xattn_cache``, ``xattn_decode``) attends over a
+``memory`` (VLM patches, the encoder's output): no rope, no mask.
 """
 from __future__ import annotations
 
@@ -46,11 +47,14 @@ def init(gen: torch.Generator, spec: AttnSpec):
     return p
 
 
-def _project_qkv(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor):
+def _project_qkv(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor,
+                 kv_x: Optional[torch.Tensor] = None):
     B, S = x.shape[:2]
+    kv_src = x if kv_x is None else kv_x
+    Skv = kv_src.shape[1]
     q = cm.dense(ctx, p, "wq", x).reshape(B, S, spec.n_heads, spec.head_dim)
-    k = cm.dense(ctx, p, "wk", x).reshape(B, S, spec.n_kv_heads, spec.head_dim)
-    v = cm.dense(ctx, p, "wv", x).reshape(B, S, spec.n_kv_heads, spec.head_dim)
+    k = cm.dense(ctx, p, "wk", kv_src).reshape(B, Skv, spec.n_kv_heads, spec.head_dim)
+    v = cm.dense(ctx, p, "wv", kv_src).reshape(B, Skv, spec.n_kv_heads, spec.head_dim)
     if spec.qk_norm:
         q = cm.rmsnorm(p["q_norm"], q)
         k = cm.rmsnorm(p["k_norm"], k)
@@ -69,10 +73,24 @@ def _attend_prompt(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor):
     return out, k, v
 
 
-def apply(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence self-attention (train / prefill without cache)."""
+def apply(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor,
+          kv_x: Optional[torch.Tensor] = None,
+          kv_pos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (train / prefill without cache write).
+
+    ``kv_x`` switches to cross-attention against that source: no rope,
+    no mask (keys at ``kv_pos``, else 0..Skv-1)."""
     B, S = x.shape[:2]
-    out, _, _ = _attend_prompt(ctx, p, spec, x)
+    if kv_x is None:
+        out, _, _ = _attend_prompt(ctx, p, spec, x)
+    else:
+        q, k, v = _project_qkv(ctx, p, spec, x, kv_x)
+        Skv = kv_x.shape[1]
+        if kv_pos is None:
+            kv_pos = torch.arange(Skv, device=x.device).expand(B, Skv)
+        out = cm.chunked_attention(
+            q, k, v, ctx.positions, kv_pos, causal=False, window=None,
+            q_chunk=spec.q_chunk, kv_chunk=spec.kv_chunk)
     return cm.dense(ctx, p, "wo", out.reshape(B, S, spec.n_heads * spec.head_dim))
 
 
@@ -141,3 +159,30 @@ def decode(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, cache):
                            cache["pos"], pos, window=spec.window)
     out = out.reshape(B, C, spec.n_heads * spec.head_dim)
     return cm.dense(ctx, p, "wo", out), cache
+
+
+# cross-attention cache: static K/V computed once from the memory --------------
+
+
+def xattn_cache(ctx: Ctx, p, spec: AttnSpec, memory: torch.Tensor):
+    B, Sm = memory.shape[:2]
+    k = cm.dense(ctx, p, "wk", memory).reshape(B, Sm, spec.n_kv_heads, spec.head_dim)
+    v = cm.dense(ctx, p, "wv", memory).reshape(B, Sm, spec.n_kv_heads, spec.head_dim)
+    if spec.qk_norm:
+        k = cm.rmsnorm(p["k_norm"], k)
+    return {"k": k, "v": v}
+
+
+def xattn_decode(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, xcache) -> torch.Tensor:
+    """One decode token's cross-attention over the cached memory K/V."""
+    B = x.shape[0]
+    q = cm.dense(ctx, p, "wq", x).reshape(B, 1, spec.n_heads, spec.head_dim)
+    if spec.qk_norm:
+        q = cm.rmsnorm(p["q_norm"], q)
+    Sm = xcache["k"].shape[1]
+    k_pos = torch.arange(Sm, device=x.device).expand(B, Sm)
+    cur = torch.full((B, 1), Sm, dtype=torch.int32, device=x.device)
+    out = cm.decode_attend(q, xcache["k"].to(q.dtype), xcache["v"].to(q.dtype),
+                           k_pos, cur, window=None)
+    out = out.reshape(B, 1, spec.n_heads * spec.head_dim)
+    return cm.dense(ctx, p, "wo", out)

@@ -260,20 +260,20 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``iota_pos=True`` asserts positions are plain aranges; with causal
     attention over equal square chunks, KV chunks wholly above the
     diagonal (or outside the window) are skipped, as in the JAX triangle
-    unroll. q: (B,Sq,H,hd) k/v: (B,Sk,K,hd) q_pos: (B,Sq) k_pos: (B,Sk)
+    unroll. A length that is not a multiple of its chunk ends in a
+    shorter chunk (the JAX version asserts whole chunks; Whisper's 1,500
+    frames need the remainder); the triangle skip then stays off.
+    q: (B,Sq,H,hd) k/v: (B,Sk,K,hd) q_pos: (B,Sq) k_pos: (B,Sk)
     """
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
     q_chunk = min(q_chunk, Sq)
     kv_chunk = min(kv_chunk, Sk)
-    if Sq % q_chunk or Sk % kv_chunk:
-        raise ValueError(f"sequence lengths ({Sq}, {Sk}) are not multiples "
-                         f"of the chunks ({q_chunk}, {kv_chunk})")
     rep = H // K
-    nq, nk = Sq // q_chunk, Sk // kv_chunk
+    nq, nk = -(-Sq // q_chunk), -(-Sk // kv_chunk)
     scale = 1.0 / math.sqrt(hd)
     triangle = (iota_pos and causal and q_chunk == kv_chunk and Sq == Sk
-                and nq <= 8)
+                and Sq % q_chunk == 0 and nq <= 8)
 
     outs = []
     for i in range(nq):
@@ -284,9 +284,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             hi = i + 1
             if window is not None:
                 lo = max(0, (i * q_chunk - (window - 1)) // kv_chunk)
-        m = torch.full((B, H, q_chunk), -math.inf, dtype=torch.float32, device=q.device)
-        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=q.device)
-        acc = torch.zeros((B, H, q_chunk, hd), dtype=torch.float32, device=q.device)
+        qn = qi.shape[1]
+        m = torch.full((B, H, qn), -math.inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, qn), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, qn, hd), dtype=torch.float32, device=q.device)
         for j in range(lo, hi):
             ki = k[:, j * kv_chunk:(j + 1) * kv_chunk]
             vi = v[:, j * kv_chunk:(j + 1) * kv_chunk]

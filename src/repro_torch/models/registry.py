@@ -5,21 +5,37 @@ import importlib
 from typing import Optional
 
 from ..configs.base import ArchConfig
+from .encdec import EncDecLM
 from .transformer import LM
 
-# the archs whose configs the port carries (dense and MoE families)
+# the JAX registry's archs; the ssm and hybrid families raise
+# NotImplementedError when their model is built (models/transformer.py)
 ARCH_IDS = [
+    "xlstm_350m",
     "deepseek_moe_16b",
     "qwen3_moe_235b_a22b",
+    "llama32_vision_90b",
+    "internlm2_20b",
     "tinyllama_1_1b",
+    "h2o_danube3_4b",
+    "gemma3_12b",
+    "whisper_small",
+    "hymba_1_5b",
     # the paper-scale model used for BRECQ end-to-end experiments
     "brecq_lm_100m",
 ]
 
 ALIASES = {
+    "xlstm-350m": "xlstm_350m",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "llama-3.2-vision-90b": "llama32_vision_90b",
+    "internlm2-20b": "internlm2_20b",
     "tinyllama-1.1b": "tinyllama_1_1b",
+    "h2o-danube-3-4b": "h2o_danube3_4b",
+    "gemma3-12b": "gemma3_12b",
+    "whisper-small": "whisper_small",
+    "hymba-1.5b": "hymba_1_5b",
 }
 
 
@@ -36,6 +52,8 @@ def build_model(cfg: ArchConfig, *, moe_impl: Optional[str] = None) -> LM:
     if moe_impl is None:
         # exact token-choice for small models; capacity routing at scale
         moe_impl = "capacity" if (cfg.moe and cfg.moe.n_experts >= 16) else "dense"
+    if cfg.enc_dec:
+        return EncDecLM(cfg, moe_impl=moe_impl)
     return LM(cfg, moe_impl=moe_impl)
 
 

@@ -1,4 +1,4 @@
-"""Decoder-only LM over the stack/sub-layer graph: dense and MoE families.
+"""Decoder-only LM over the stack/sub-layer graph: dense, MoE and VLM.
 
 A model is: embed -> [stack_0 ... stack_k] -> final norm -> head. Each
 *stack* is ``n`` identical blocks whose params are stacked along a
@@ -7,8 +7,11 @@ params and artifacts map key for key). The layer loop is written out in
 place of ``lax.scan``: layer ``l`` reads the views ``leaf[l]``.
 
 The port covers the dense family (uniform, sliding-window and
-local:global attention) and the MoE family (a ``dense0`` stack of
-leading dense-FFN layers, then a ``moe`` stack). The other families raise
+local:global attention), the MoE family (a ``dense0`` stack of leading
+dense-FFN layers, then a ``moe`` stack) and the VLM family (groups of
+self-attention layers closed by a tanh-gated cross-attention layer over
+``batch["patches"]``); ``encdec.EncDecLM`` builds the encoder-decoder
+family on the same sub-layers. The recurrent families raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -32,14 +35,12 @@ Params = Any
 _FAMILY_TODO = {
     "ssm": "the other-families slice (ROADMAP module 14: xLSTM)",
     "hybrid": "the other-families slice (ROADMAP module 14: hymba)",
-    "vlm": "the other-families slice (ROADMAP module 14: VLM cross-attention)",
-    "audio": "the other-families slice (ROADMAP module 14: whisper)",
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    mixer: str  # 'attn' (the only mixer of the dense family)
+    mixer: str  # 'attn' | 'xattn' (cross-attention over ctx.extras["memory"])
     window: Optional[int] = None
     ffn: Optional[str] = None  # 'mlp' | 'moe' | None
     causal: bool = True
@@ -54,7 +55,18 @@ class StackDef:
 
 
 def build_stacks(cfg: ArchConfig) -> list[StackDef]:
-    if cfg.family == "moe" and not cfg.enc_dec:
+    if cfg.enc_dec:
+        raise ValueError(f"{cfg.name} is an encoder-decoder config: build it "
+                         f"with models.encdec.EncDecLM (registry.build_model)")
+    if cfg.family == "vlm":
+        k = cfg.xattn_every or 5
+        if cfg.n_layers % k:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split "
+                             f"into groups of {k} ending in cross-attention")
+        subs = tuple([SubLayer("attn", ffn="mlp")] * (k - 1)
+                     + [SubLayer("xattn", ffn="mlp")])
+        return [StackDef("body", cfg.n_layers // k, subs)]
+    if cfg.family == "moe":
         if cfg.moe is None:
             raise ValueError(f"{cfg.name}: the 'moe' family needs a MoEArch")
         stacks = []
@@ -65,7 +77,7 @@ def build_stacks(cfg: ArchConfig) -> list[StackDef]:
         stacks.append(StackDef("moe", cfg.n_layers - cfg.moe.first_k_dense,
                                (SubLayer("attn", ffn="moe"),)))
         return stacks
-    if cfg.family != "dense" or cfg.enc_dec:
+    if cfg.family != "dense":
         todo = _FAMILY_TODO.get(cfg.family, "a later slice of the port")
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family comes with {todo}")
@@ -81,11 +93,11 @@ def build_stacks(cfg: ArchConfig) -> list[StackDef]:
     return [StackDef("body", cfg.n_layers, (SubLayer("attn", window=cfg.window, ffn="mlp"),))]
 
 
-def _attn_spec(cfg: ArchConfig, sub: SubLayer) -> attn_mod.AttnSpec:
+def _attn_spec(cfg: ArchConfig, sub: SubLayer, cross: bool = False) -> attn_mod.AttnSpec:
     return attn_mod.AttnSpec(
         d_model=cfg.d_model, n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
         head_dim=cfg.hd, rope_theta=cfg.rope_theta, window=sub.window,
-        causal=sub.causal, use_rope=True, qk_norm=cfg.qk_norm)
+        causal=sub.causal and not cross, use_rope=not cross, qk_norm=cfg.qk_norm)
 
 
 def _mlp_spec(cfg: ArchConfig, sub: SubLayer) -> mlp_mod.MLPSpec:
@@ -125,8 +137,11 @@ class LM:
 
     def _init_sub(self, gen: torch.Generator, sub: SubLayer) -> Params:
         cfg = self.cfg
+        cross = sub.mixer == "xattn"
         p: dict = {"norm1": _norm_init(cfg, gen.device),
-                   "attn": attn_mod.init(gen, _attn_spec(cfg, sub))}
+                   "attn": attn_mod.init(gen, _attn_spec(cfg, sub, cross))}
+        if cross:  # the gate starts shut, as in JAX: tanh(0) = 0
+            p["xgate"] = torch.zeros((), dtype=torch.float32, device=gen.device)
         if sub.ffn == "mlp":
             p["norm2"] = _norm_init(cfg, gen.device)
             p["mlp"] = mlp_mod.init(gen, _mlp_spec(cfg, sub))
@@ -159,7 +174,13 @@ class LM:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         sc = ctx.scoped(f"sub{idx}")
         h = _norm(cfg, p["norm1"], x)
-        x = x + attn_mod.apply(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub), h)
+        if sub.mixer == "xattn":
+            out = attn_mod.apply(sc.scoped("attn"), p["attn"],
+                                 _attn_spec(cfg, sub, cross=True), h,
+                                 kv_x=ctx.extras["memory"])
+            x = x + torch.tanh(p["xgate"]) * out
+        else:
+            x = x + attn_mod.apply(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub), h)
         if sub.ffn == "mlp":
             h = _norm(cfg, p["norm2"], x)
             x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub), h)
@@ -188,6 +209,8 @@ class LM:
         positions = torch.arange(S, dtype=torch.int32,
                                  device=tokens.device).expand(B, S)
         ctx = Ctx(cfg=self.cfg, positions=positions, quant=quant)
+        if self.cfg.family == "vlm":
+            ctx.extras["memory"] = batch["patches"]
         return cm.embed_lookup(ctx, params["embed"], tokens), ctx
 
     def finish(self, params: Params, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
@@ -216,16 +239,41 @@ class LM:
 
     # -- serving ----------------------------------------------------------------
 
+    def _init_sub_cache(self, sub: SubLayer, batch: int, max_len: int, dtype,
+                        device):
+        cfg = self.cfg
+        if sub.mixer == "xattn":
+            # sized for n_patches, as in JAX; prefill refits it to the memory
+            spec = _attn_spec(cfg, sub, cross=True)
+            shape = (batch, cfg.n_patches, spec.n_kv_heads, spec.head_dim)
+            return {"xk": torch.zeros(shape, dtype=dtype, device=device),
+                    "xv": torch.zeros(shape, dtype=dtype, device=device)}
+        return {"attn": attn_mod.init_cache(_attn_spec(cfg, sub), batch, max_len,
+                                            dtype, device)}
+
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):
-        """Dense KV caches, stacked along the layer dim like the params."""
+        """Dense KV caches (and cross-attention K/V), stacked along the
+        layer dim like the params."""
         cache = {}
         for stack in self.stacks:
-            layers = [{f"sub{i}": {"attn": attn_mod.init_cache(
-                _attn_spec(self.cfg, s), batch, max_len, dtype, device)}
-                for i, s in enumerate(stack.subs)} for _ in range(stack.n)]
+            layers = [{f"sub{i}": self._init_sub_cache(s, batch, max_len, dtype, device)
+                       for i, s in enumerate(stack.subs)} for _ in range(stack.n)]
             cache[stack.name] = _stack_trees(layers)
         return cache
+
+    def _fit_xattn_cache(self, cache, memory: torch.Tensor) -> None:
+        """Give every cross-attention cache the memory's own length (JAX's
+        prefill replaces the n_patches-long one it was made with)."""
+        B, Sm = memory.shape[:2]
+        for stack in self.stacks:
+            for i, sub in enumerate(stack.subs):
+                c = cache[stack.name][f"sub{i}"]
+                if sub.mixer == "xattn" and c["xk"].shape[1:3] != (B, Sm):
+                    for k in ("xk", "xv"):
+                        old = c[k]
+                        c[k] = torch.zeros((old.shape[0], B, Sm, *old.shape[3:]),
+                                           dtype=old.dtype, device=old.device)
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          kv_dtype: str = "int8", device=None):
@@ -255,9 +303,22 @@ class LM:
         cfg = self.cfg
         sc = ctx.scoped(f"sub{idx}")
         h = _norm(cfg, p["norm1"], x)
-        out, cache["attn"] = step(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub),
-                                  h, cache["attn"])
-        x = x + out
+        if sub.mixer == "xattn":
+            spec = _attn_spec(cfg, sub, cross=True)
+            if step is attn_mod.prefill:  # the memory's K/V, cached in place
+                mem = ctx.extras["memory"]
+                xc = attn_mod.xattn_cache(sc.scoped("attn"), p["attn"], spec, mem)
+                cache["xk"].copy_(xc["k"])
+                cache["xv"].copy_(xc["v"])
+                out = attn_mod.apply(sc.scoped("attn"), p["attn"], spec, h, kv_x=mem)
+            else:
+                out = attn_mod.xattn_decode(sc.scoped("attn"), p["attn"], spec, h,
+                                            {"k": cache["xk"], "v": cache["xv"]})
+            x = x + torch.tanh(p["xgate"]) * out
+        else:
+            out, cache["attn"] = step(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub),
+                                      h, cache["attn"])
+            x = x + out
         if sub.ffn == "mlp":
             x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub),
                                   _norm(cfg, p["norm2"], x))
@@ -281,6 +342,8 @@ class LM:
         """Process the prompt; returns (last-token logits, filled cache).
         The cache is filled in place."""
         x, ctx = self.begin(params, batch, quant)
+        if "memory" in ctx.extras:
+            self._fit_xattn_cache(cache, ctx.extras["memory"])
         x = self._run_layers(ctx, params, x, cache, attn_mod.prefill)
         logits = self.finish(params, x[:, -1:], ctx)
         return logits[:, 0], cache

@@ -545,6 +545,46 @@ def test_kv_decode_every_plan_matches_plain(cuda, B, H, K, hd, S, window, holes)
     assert kv_kernel.SPLIT_LAUNCHES["kv_decode"] == {s: runs // 4 for s in spec.KV_SPLITS}
 
 
+# the attention families' decode reads on the engine's paged entry:
+# h2o-danube3-4b (32 heads over 8 of 120: the 8-byte body, G 4, its window
+# of 4096 and a window that masks) and gemma3-12b (16 over 8 of 256: G 2,
+# its local window of 1024 and one that masks), 8 slots, one idle
+@pytest.mark.parametrize("H,K,hd,mp,window,body", [(32, 8, 120, 20, 4096, "v8"),
+                                                   (32, 8, 120, 20, 100, "v8"),
+                                                   (16, 8, 256, 20, 1024, "v16"),
+                                                   (16, 8, 256, 20, 50, "v16")])
+def test_kv_decode_paged_family_shapes_match_plain(cuda, H, K, hd, mp, window, body):
+    (q, kp, vp, ks, vs, bt, cur), _ = paged_case(8, H, K, hd, 16, mp, cuda, idle=1)
+    pool = {"k_pages": kp, "v_pages": vp, "k_scale": ks, "v_scale": vs}
+    kv_kernel.reset_launches()
+    got = kv_ops.attend_int8_paged(q, pool, bt, cur, 16, window=window, backend="cuda")
+    want = kv_ops.attend_int8_paged(q, pool, bt, cur, 16, window=window, backend="torch")
+    check(got, want)
+    assert kv_kernel.BODY_LAUNCHES["kv_decode"][body] == 1
+    assert kv_kernel.ENTRY_LAUNCHES["kv_decode"] == {"dense": 0, "paged": 1}
+
+
+# the packed matmuls at the attention families' largest shapes: K2 over
+# whisper-small's encoder (8 x 1,500 frames into its MLP) and the VLM's
+# cross-attention K/V over 8 x 1,024 patches; K1 on the VLM's MLP, whose
+# codes (117 MB at W4) do not fit in L2
+@pytest.mark.parametrize("m,k,n", [(12000, 768, 3072), (8192, 8192, 1024)])
+def test_qmatmul_family_shapes_match_plain(cuda, m, k, n):
+    x, wp, s = case(4, k, n, 1, m, cuda)
+    before = dict(kernel.BODY_LAUNCHES["qmatmul"])
+    check(kernel.qmatmul(x, wp, s, bits=4), ref.qmatmul_ref(x, wp, s, 4))
+    assert kernel.BODY_LAUNCHES["qmatmul"]["tc"] == before["tc"] + 1
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("k,n", [(8192, 28672), (28672, 8192)])
+def test_qgemv_off_l2_shapes_match_plain(cuda, bits, k, n):
+    x, wp, s = case(bits, k, n, 1, 8, cuda)
+    before = dict(kernel.BODY_LAUNCHES["qgemv"])
+    check(kernel.qgemv(x, wp, s, bits=bits), ref.qgemv_ref(x, wp, s, bits))
+    assert kernel.BODY_LAUNCHES["qgemv"]["gemv_tc"] == before["gemv_tc"] + 1
+
+
 def test_kv_decode_paged_is_deterministic(cuda):
     paged, _ = paged_case(8, 12, 12, 64, 16, 128, cuda, holes=True, idle=1)
     assert spec.plan_kv_decode(8, 12, 2048, 64).split > 1

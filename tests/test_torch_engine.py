@@ -247,7 +247,7 @@ def test_rejects_oversized_and_non_attention(weights):
         eng.submit(np.zeros(30, np.int32), 10)
     # the port carries no recurrent family: a non-attention arch stops at
     # get_model, and a stack with a recurrent mixer stops at the pool
-    with pytest.raises(KeyError, match="xlstm_350m"):
+    with pytest.raises(NotImplementedError, match="xLSTM"):
         get_model("xlstm_350m", reduced=True)
     _, other = get_model("brecq_lm_100m", reduced=True)
     other.stacks = [StackDef("body", 4, (SubLayer("mlstm"),))]

@@ -147,8 +147,12 @@ def test_other_families_name_their_slice():
                      n_kv_heads=2, d_ff=8, vocab=16)
     with pytest.raises(NotImplementedError, match="ROADMAP module 14: xLSTM"):
         LM(cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP module 14: hymba"):
+        get_model("hymba_1_5b")
+    with pytest.raises(NotImplementedError, match="ROADMAP module 14: xLSTM"):
+        get_model("xlstm_350m")
     with pytest.raises(KeyError, match="unknown arch"):
-        get_model("whisper_small")
+        get_model("mamba_130m")
 
 
 def test_init_layout_matches_jax():
