@@ -112,20 +112,38 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              the card, a fixed batch of 8 x 64 + 32 with 1024 patches an
              image, K1 on 8192 x 28672 counted, replayed by the plain path;
              redrawn patches move the logits
- 13. dense   h2o-danube3-4b at full width and depth and gemma3-12b at full
-             width (one 5 local + 1 global group) through the engine: RTN
-             W4, int8 pool, 8 slots, 16 streams of 64-256 prompt tokens;
-             every kv_decode launch on the paged entry (8-byte body at hd
-             120, 16-byte body at hd 256) and shadowed, kernel vs plain
+ 13. dense   h2o-danube3-4b at full width and depth, gemma3-12b at full
+             width (one 5 local + 1 global group) and internlm2-20b at full
+             width (4 of 48 layers) through the engine: RTN W4, int8 pool, 8
+             slots, 16 streams of 64-256 prompt tokens; every kv_decode
+             launch on the paged entry (8-byte body at hd 120, 16-byte body
+             at hd 256 and at hd 128 with G 6) and shadowed, kernel vs plain
              logits, staggered == sequential
- 14. report  one JSON line of kernels (qmatmul at M 32 and, as added
+ 14. recurrent  hold qgemv (M 8), qmatmul (M 512) and fakequant against
+             their plain versions at the recurrent families' new shapes (N 8
+             and 16 gate projections, hymba's head of N 32001, K 1600 and
+             3200; W4 and W2) and time them there
+ 15. xlstm   xlstm-350m at full width and depth (4 blocks of 5 mLSTM + 1
+             sLSTM): BRECQ W4 calibration (32 x 128 tokens, 100 iterations a
+             block; every K5 call shadowed), BRECQ closer to FP than RTN on
+             held-out logits, export and verified load, a fixed batch (8 x 64
+             + 32) served through K2 and K1 (launches counted), replayed by
+             the plain path; prefill + 8 decode steps against the forward at
+             the same positions; the associative scans' and mLSTM chunks'
+             share of a prefill (CUDA events)
+ 16. hymba   hymba-1.5b at full width: at full depth, RTN W4 served as
+             xlstm's fixed batch (same checks); cut to 4 layers, BRECQ W4
+             calibration, export, verified load and the calibrated artifact
+             served the same way
+ 17. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
              64; the launches of each body on the main paths, for qgemv,
              qmatmul, qmatmul_grouped and kv_decode, whose launches are also
              counted by entry and by split; the launches of the mixed,
-             calib_moe and the attention families' paths, and the times at
-             the families' shapes), the run's wall, the card's name and
-             power limit, and the final ``{"ok": true, "device": ...}`` line
+             calib_moe, the attention families' and the recurrent families'
+             paths, and the times at the families' shapes), the run's wall,
+             the card's name and power limit, and the final
+             ``{"ok": true, "device": ...}`` line
 
 Exits non-zero on any failure, and when no CUDA device is available.
 
@@ -274,9 +292,11 @@ FAMILY_QMM = [("qgemv", 8, 8192, 28672, 4, "vlm_mlp"), ("qgemv", 8, 28672, 8192,
               ("qmatmul", 8192, 8192, 1024, 4, "vlm_xkv")]
 # K4's paged entry at the dense engines' decode reads (B, H, K, hd, page
 # size, pages a stream, window): 8 slots over S_cap 288, one idle; also
-# held against the plain version under a window that masks
+# held against the plain version under a window that masks. internlm2-20b's
+# 48 heads over 8 of 128 put G 6 on the 16-byte body
 FAMILY_KV = {"danube": (8, 32, 8, 120, 16, 18, 4096),
-             "gemma3": (8, 16, 8, 256, 16, 18, 1024)}
+             "gemma3": (8, 16, 8, 256, 16, 18, 1024),
+             "internlm2": (8, 48, 8, 128, 16, 18, None)}
 FAMILY_KV_MASKING_WINDOW = 100
 # Redrawing the memory must move the served prefill logits by more than
 # this many times the kernel-vs-plain replay limit (1e-3 * max|logit|).
@@ -284,6 +304,36 @@ FAMILY_KV_MASKING_WINDOW = 100
 # cross-attention layer averages 1,024 random patches, which moves its
 # logits ~20x the limit on random weights (PERF.md).
 MEMORY_MOVES = {"whisper": 100, "vlm": 10}
+
+
+# the recurrent families. xlstm-350m at full width and depth (24 layers = 4
+# blocks of 5 mLSTM + 1 sLSTM), BRECQ W4 as whisper's phase: 32 x 128
+# tokens, minibatch 8, 100 iterations a block. hymba-1.5b at full width: at
+# full depth (32 layers) RTN W4 served; its depth cut to HYMBA_CALIB_LAYERS
+# for BRECQ W4 (chip time)
+RECURRENT_SEQS, RECURRENT_ITERS = 32, 100
+HYMBA_CALIB_LAYERS = 4
+# decode steps held against the forward at the same positions: each step's
+# recurrent state is written into the cache's views in place. The forward
+# and the cached path run other kernels (K2 over all 8 x 72 rows; K2 over
+# the prompt, then K1 at 8 rows), and xlstm-350m at random init amplifies
+# their rounding: 6.5e-4 of max |logit| on an H100 (PERF.md); a step from
+# a lost state is off by about max |logit|, which each run checks.
+DECODE_VS_FORWARD_STEPS = 8
+DECODE_VS_FORWARD_TOL = 1e-2  # of max |logit|
+# (label, K, N) the recurrent families give K1 (M 8), K2 (M 512) and K5: the
+# gate projections of N 8 (xlstm's w_if) and 16 (hymba's wB/wC), hymba's head
+# of N 32,001 (not a multiple of 16), and the rest of both families' linears
+RECURRENT_SHAPES = [("xlstm_w_if", 2048, 8), ("xlstm_in_proj", 1024, 4096),
+                    ("xlstm_wqkv", 2048, 2048), ("xlstm_w_in", 1024, 8192),
+                    ("xlstm_out_proj", 2048, 1024), ("xlstm_head", 1024, 50304),
+                    ("hymba_wBC", 3200, 16), ("hymba_w_dt", 3200, 3200),
+                    ("hymba_in_proj", 1600, 6400), ("hymba_wqo", 1600, 1600),
+                    ("hymba_wkv", 1600, 320), ("hymba_mlp", 1600, 5504),
+                    ("hymba_head", 1600, 32001)]
+# internlm2-20b at full width, its depth cut from 48 layers (≈ 80 GB as f32)
+# to INTERNLM_LAYERS (10.8 GB, 4.5 of it the untied 92,544-word table and head)
+INTERNLM_LAYERS = 4
 
 
 def tolerance(ref) -> float:
@@ -1458,9 +1508,8 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> tu
     quality gate; export, load and serve of the artifact. Returns what the
     ``mixed`` phase reuses (model, weights, the W2 result, batches) and the
     phase's record."""
-    from repro_torch.core import ReconConfig, adaround, quantize, reconstruction
+    from repro_torch.core import ReconConfig, quantize
     from repro_torch.data import Corpus, CorpusConfig, make_batches
-    from repro_torch.deploy import QuantizedArtifact, dequant_leaf, export
     from repro_torch.models import get_model
 
     cfg, model = get_model("brecq_lm_100m")
@@ -1502,13 +1551,8 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> tu
               f"{u['fallback']}")
 
     # quality gate on held-out sequences: logits MSE against FP
-    weights = reconstruction.enumerate_weights(
-        model, params, {"tokens": held["tokens"][:1]})
-    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
-    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
-    v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
+    rtn_params = _rtn_params(model, params, res, held)
     with torch.no_grad():
-        rtn_params = reconstruction.bake(model, params, blocks, v_rtn, embed)
         fp = model.forward(params, held)[0]
         mse = {name: float(torch.mean((model.forward(p, held)[0] - fp) ** 2))
                for name, p in (("brecq", res.params_q), ("rtn", rtn_params))}
@@ -1520,21 +1564,10 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> tu
         fail(f"BRECQ-W2 logits are not closer to FP than RTN-W2's: {mse}")
 
     # export, save, load; dequantized block weights are params_q bit for bit
-    art_dir = workdir / "calib_w2"
-    export(model, res).save(str(art_dir))
-    art = QuantizedArtifact.load(str(art_dir)).to("cuda")
-    serve._check_manifest(art.manifest, cfg)
-    for path in blocks:
-        sname, ri = path.split("/")[0].rsplit(".", 1)
-        node, qnode = art.params[sname], res.params_q[sname]
-        for k in path.split("/")[1:]:
-            node, qnode = node[k], qnode[k]
-        want = qnode["w"][int(ri)]
-        got = dequant_leaf(node["w"][int(ri)], node["qscale"][int(ri)], want.shape[0])
-        if not torch.equal(got, want):
-            fail(f"the loaded artifact's {path} differs from params_q")
+    art, n_blocks = _export_verified(torch, model, res, serve, workdir / "calib_w2",
+                                     "calib W2")
     print(f"[calib] artifact {art.nbytes()} B saved and loaded verified; the "
-          f"{len(blocks)} block weights equal params_q bit for bit")
+          f"{n_blocks} block weights equal params_q bit for bit")
     prompts = corpus.sample(8, 64, seed=7)
     batch = {"tokens": torch.from_numpy(prompts).cuda()}
     qm_kernel.reset_launches()
@@ -1594,6 +1627,42 @@ def _logits_mse(torch, model, fp, held, params_q) -> float:
         return float(torch.mean((model.forward(params_q, held)[0] - fp) ** 2))
 
 
+def _rtn_params(model, params, res, held):
+    """RTN against BRECQ on the same scales: every block weight of ``res``
+    rounded to nearest on its calibrated scale, the embedding and head as
+    ``res`` quantized them, baked into a copy of ``params``."""
+    from repro_torch.core import adaround, reconstruction
+
+    weights = reconstruction.enumerate_weights(model, params,
+                                               {k: t[:1] for k, t in held.items()})
+    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
+    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
+    v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
+    return reconstruction.bake(model, params, blocks, v_rtn, embed)
+
+
+def _export_verified(torch, model, res, serve, art_dir: Path, what: str):
+    """Export ``res``, save it, load it verified onto the card, and hold every
+    block weight of the loaded artifact, dequantized, against ``params_q``
+    bit for bit. Returns (the artifact, the number of block weights)."""
+    from repro_torch.deploy import QuantizedArtifact, dequant_leaf, export
+
+    export(model, res).save(str(art_dir))
+    art = QuantizedArtifact.load(str(art_dir), verify=True).to("cuda")
+    serve._check_manifest(art.manifest, model.cfg)
+    blocks = [p for p in res.qstates if "." in p.split("/")[0]]
+    for path in blocks:
+        sname, ri = path.split("/")[0].rsplit(".", 1)
+        node, qnode = art.params[sname], res.params_q[sname]
+        for k in path.split("/")[1:]:
+            node, qnode = node[k], qnode[k]
+        want = qnode["w"][int(ri)]
+        if not torch.equal(dequant_leaf(node["w"][int(ri)], node["qscale"][int(ri)],
+                                        want.shape[0]), want):
+            fail(f"the loaded {what} artifact's {path} differs from params_q")
+    return art, len(blocks)
+
+
 def _smi() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -1606,7 +1675,7 @@ def phase_calib_moe(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -
     launches on stacks of experts counted apart; BRECQ against RTN on
     held-out logits; export, verified load and a fixed batch served
     through qmatmul_grouped, replayed by the plain path."""
-    from repro_torch.core import ReconConfig, adaround, quantize, reconstruction
+    from repro_torch.core import ReconConfig, quantize, reconstruction
     from repro_torch.data import Corpus, CorpusConfig, make_batches
     from repro_torch.deploy import QuantizedArtifact, export
     from repro_torch.models import build_model, get_config
@@ -1652,10 +1721,6 @@ def phase_calib_moe(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -
               f"{u['retries']} fallback {u['fallback']} opt_wall_s {u['opt_wall_s']:.2f}")
 
     # quality gate on held-out sequences: logits MSE against FP
-    weights = reconstruction.enumerate_weights(
-        model, params, {"tokens": held["tokens"][:1]})
-    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
-    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
     walker = reconstruction.Walker(model)
 
     def hidden(p):  # the last block's output, before the final norm
@@ -1667,9 +1732,7 @@ def phase_calib_moe(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -
     with torch.no_grad():
         fp = model.forward(params, held)[0]
         h_fp = hidden(params)
-        v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
-        rtn_params = reconstruction.bake(model, params, blocks, v_rtn, embed)
-        del v_rtn, weights
+        rtn_params = _rtn_params(model, params, res, held)
         mse = {"brecq": _logits_mse(torch, model, fp, held, res.params_q),
                "rtn": _logits_mse(torch, model, fp, held, rtn_params),
                "fp_mean_square": float(torch.mean(fp ** 2)),
@@ -2120,9 +2183,8 @@ def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> 
     and a fixed batch served from the packed artifact through K2 (the
     encoder at M 12,000) and K1 (decode), replayed by the plain path; the
     logits move when the frames are redrawn."""
-    from repro_torch.core import ReconConfig, adaround, quantize, reconstruction
+    from repro_torch.core import ReconConfig, quantize, reconstruction
     from repro_torch.data import Corpus, CorpusConfig, make_batches
-    from repro_torch.deploy import QuantizedArtifact, dequant_leaf, export
     from repro_torch.interop import tree_leaves
     from repro_torch.kernels.qmatmul import ops as qmm_ops
     from repro_torch.models import get_model
@@ -2172,11 +2234,6 @@ def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> 
 
     # quality gates on held-out sequences: logits and the last encoder
     # block's output (before the encoder's norm) against FP
-    weights = reconstruction.enumerate_weights(
-        model, params, {k: t[:1] for k, t in held.items()})
-    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
-    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
-
     def encoded(p):
         x, ctx = walker.stem(p, held)
         for bi in range(walker.enc_n):
@@ -2186,9 +2243,7 @@ def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> 
     with torch.no_grad():
         fp = model.forward(params, held)[0]
         e_fp = encoded(params)
-        v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
-        rtn_params = reconstruction.bake(model, params, blocks, v_rtn, embed)
-        del v_rtn, weights
+        rtn_params = _rtn_params(model, params, res, held)
         mse = {"brecq": _logits_mse(torch, model, fp, held, res.params_q),
                "rtn": _logits_mse(torch, model, fp, held, rtn_params),
                "fp_mean_square": float(torch.mean(fp ** 2)),
@@ -2210,20 +2265,9 @@ def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> 
              f"{mse}")
 
     # export, save, verified load: the block weights are params_q bit for bit
-    art_dir = workdir / "whisper_w4"
     t0 = time.perf_counter()
-    export(model, res).save(str(art_dir))
-    art = QuantizedArtifact.load(str(art_dir), verify=True).to("cuda")
-    serve._check_manifest(art.manifest, cfg)
-    for path in blocks:
-        sname, ri = path.split("/")[0].rsplit(".", 1)
-        node, qnode = art.params[sname], res.params_q[sname]
-        for k in path.split("/")[1:]:
-            node, qnode = node[k], qnode[k]
-        want = qnode["w"][int(ri)]
-        if not torch.equal(dequant_leaf(node["w"][int(ri)], node["qscale"][int(ri)],
-                                        want.shape[0]), want):
-            fail(f"the loaded whisper artifact's {path} differs from params_q")
+    art, n_blocks = _export_verified(torch, model, res, serve, workdir / "whisper_w4",
+                                     "whisper")
     for key in ("enc_pos", "enc_norm"):
         same = all(torch.equal(a, b) for a, b in zip(tree_leaves(art.params[key]),
                                                      tree_leaves(res.params_q[key])))
@@ -2231,7 +2275,7 @@ def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> 
             fail(f"the whisper artifact's {key} is not the model's")
     print(f"[whisper] artifact {art.nbytes()} B ({art.manifest['family']}) exported, "
           f"saved and loaded verified in {time.perf_counter() - t0:.1f}s; the "
-          f"{len(blocks)} block weights equal params_q bit for bit")
+          f"{n_blocks} block weights equal params_q bit for bit")
     del res, params
     torch.cuda.empty_cache()
 
@@ -2479,13 +2523,381 @@ def _dense_engine(torch, serve, kernels, arch: str, n_layers: int, body: str) ->
 
 
 def phase_dense_cfgs(torch, serve, kernels) -> dict:
-    """h2o-danube3-4b at full width and depth and gemma3-12b at full width
-    (one local:global group) through the engine: K4's paged entry on its
-    8-byte body at hd 120 and its 16-byte body at hd 256."""
-    return {"h2o_danube3_4b": _dense_engine(torch, serve, kernels, "h2o_danube3_4b",
-                                            24, "v8"),
-            "gemma3_12b": _dense_engine(torch, serve, kernels, "gemma3_12b",
-                                        GEMMA_LAYERS, "v16")}
+    """h2o-danube3-4b at full width and depth, gemma3-12b at full width
+    (one local:global group) and internlm2-20b at full width (depth cut to
+    INTERNLM_LAYERS) through the engine: K4's paged entry on its 8-byte body
+    at hd 120 and its 16-byte body at hd 256 and at hd 128 with G 6."""
+    out = {"h2o_danube3_4b": _dense_engine(torch, serve, kernels, "h2o_danube3_4b",
+                                           24, "v8"),
+           "gemma3_12b": _dense_engine(torch, serve, kernels, "gemma3_12b",
+                                       GEMMA_LAYERS, "v16"),
+           "internlm2_20b": _dense_engine(torch, serve, kernels, "internlm2_20b",
+                                          INTERNLM_LAYERS, "v16")}
+    out["gemma3_12b"]["reduced"] = {"n_layers": [48, GEMMA_LAYERS]}
+    out["internlm2_20b"]["reduced"] = {
+        "n_layers": [48, INTERNLM_LAYERS],
+        "why": "48 layers are ≈ 80 GB as f32; the width stays"}
+    return out
+
+
+def phase_recurrent_kernels(torch, kernel, ref, pack, fq_kernel, fq_ref) -> dict:
+    """K1, K2 and K5 against their plain versions at the recurrent families'
+    new shapes (RECURRENT_SHAPES), and timed there: K1 at M 8 and K2 at M
+    512 (the fixed batch's prefill), W4 and W2, within 1e-4*max|ref|+1e-5;
+    K5 hard bit for bit and soft within 1e-6*max|ref|, W4 and W2, (1, N)
+    scales. Times (K1 and K2 at W4 with their library yardstick, K5 hard at
+    W2): kernel, plain version and this call's bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    errs = {"qgemv": 0.0, "qmatmul": 0.0, "fakequant": 0.0}
+    rows = {"qgemv": [], "qmatmul": [], "fakequant": []}
+    fns = {"qgemv": (kernel.qgemv, ref.qgemv_ref, 8, "gemv_tc"),
+           "qmatmul": (kernel.qmatmul, ref.qmatmul_ref, 512, "tc")}
+    for label, k, n in RECURRENT_SHAPES:
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        for bits in (4, 2):
+            wp, s = pack.rtn_pack_leaf(w, bits, None)
+            for name, (fn, plain, m, body) in fns.items():
+                x = torch.randn((m, k), generator=gen, device=dev)
+                before = kernel.BODY_LAUNCHES[name][body]
+                out, want = fn(x, wp, s, bits=bits), plain(x, wp, s, bits)
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max())
+                errs[name] = max(errs[name], err)
+                if kernel.BODY_LAUNCHES[name][body] != before + 1:
+                    fail(f"{name} at {label} ({k} x {n}) did not take its body {body}")
+                if not math.isfinite(err) or err > tolerance(want):
+                    fail(f"{name} W{bits} M={m} {label} K={k} N={n}: max abs err "
+                         f"{err:.3e} > tol {tolerance(want):.3e}")
+                if bits == 4:
+                    row = _time_case(torch, name, fn, plain, ref, x, wp, s, bits, None,
+                                     m, k, n, err, err / max(float(want.abs().max()), 1e-30))
+                    rows[name].append({"label": label, **row})
+                del out, want, x
+            qmin, qmax = -(2 ** (bits - 1)), 2 ** (bits - 1) - 1
+            v = torch.randn((k, n), generator=gen, device=dev) * 2
+            s_row = torch.clamp_min(w.abs().amax(0, keepdim=True) / qmax, 1e-8)
+            for hard in (True, False):
+                out = fq_kernel.fakequant(w, v, s_row, qmin=qmin, qmax=qmax, hard=hard)
+                want = fq_ref.fakequant_ref(w, v, s_row, qmin, qmax, hard)
+                torch.cuda.synchronize()
+                err = float((out - want).abs().max())
+                if hard and not torch.equal(out, want):
+                    fail(f"fakequant W{bits} hard {label} K={k} N={n}: not bit-identical "
+                         f"to the plain version (max abs err {err:.3e})")
+                if not math.isfinite(err) or err > 1e-6 * float(want.abs().max()):
+                    fail(f"fakequant W{bits} {label} K={k} N={n}: max abs err {err:.3e}")
+                errs["fakequant"] = max(errs["fakequant"], err)
+            if bits == 2:  # as the brecq block's K5 rows: hard, W2, (1, N) scales
+                rows["fakequant"].append({"label": label, **_time_fq(
+                    torch, fq_kernel, fq_ref, w, v, s_row, qmin, qmax)})
+            del v, out, want
+        del w
+        torch.cuda.empty_cache()
+    print(f"[recurrent] kernel-vs-plain at the recurrent families' {len(RECURRENT_SHAPES)} "
+          f"new shapes, W4 and W2 (K1/K2 within 1e-4*max|ref|+1e-5, K5 hard bit for "
+          f"bit): max abs err {errs}")
+    return {"errs": errs, "rows": rows}
+
+
+@contextlib.contextmanager
+def _timed_calls(torch, targets: dict):
+    """CUDA events around every outermost call of each ``targets[label] =
+    (module, name)``; yields {label: [(start, end), ...]}. The functions are
+    looked up on their modules at every call, so the wrappers see them
+    all; a call inside a timed call (the scan's own recursion) is not
+    timed again."""
+    events = {label: [] for label in targets}
+    orig = {label: getattr(mod, name) for label, (mod, name) in targets.items()}
+    depth = [0]
+
+    def wrap(label, fn):
+        def timed(*a, **kw):
+            if depth[0]:
+                return fn(*a, **kw)
+            depth[0] += 1
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            try:
+                return fn(*a, **kw)
+            finally:
+                ev[1].record()
+                depth[0] -= 1
+                events[label].append(ev)
+        return timed
+
+    for label, (mod, name) in targets.items():
+        setattr(mod, name, wrap(label, orig[label]))
+    try:
+        yield events
+    finally:
+        for label, (mod, name) in targets.items():
+            setattr(mod, name, orig[label])
+
+
+def _prefill_shares(torch, model, params, hook, batch) -> dict:
+    """One prefill of ``batch`` between CUDA events, with events around every
+    associative scan (the SSM's selective scan, the sLSTM's three) and every
+    mLSTM chunk: device-stream ms of each and their share of the prefill
+    (idle gaps between the host's launches included in all of them)."""
+    from repro_torch.models import common as cm
+    from repro_torch.models import xlstm as xlstm_mod
+
+    b, s = batch["tokens"].shape
+    cache = model.init_cache(b, s, torch.float32, "cuda")
+    targets = {"associative_scan": (cm, "associative_scan"),
+               "mlstm_chunk": (xlstm_mod, "_mlstm_chunk")}
+    with torch.inference_mode(), _timed_calls(torch, targets) as events:
+        torch.cuda.synchronize()
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        model.prefill(params, batch, cache, hook)
+        t1.record()
+        torch.cuda.synchronize()
+    total = t0.elapsed_time(t1)
+    out = {"prefill_ms": total}
+    for label, evs in events.items():
+        ms = sum(a.elapsed_time(z) for a, z in evs)
+        out[f"{label}_calls"] = len(evs)
+        out[f"{label}_ms"] = ms
+        out[f"{label}_share"] = ms / total
+    return out
+
+
+def _decode_vs_forward(torch, model, params, hook, tokens, k: int) -> dict:
+    """Prefill S - k tokens, then k decode steps of ``tokens``' own next
+    tokens, each step's logits against the forward's at the same position,
+    within DECODE_VS_FORWARD_TOL * max|logit|. The first step is also taken
+    from a fresh cache (the state a step sees when prefill or decode does
+    not write it into the cache's views): it must miss the limit."""
+    B, S = tokens.shape
+    with torch.inference_mode():
+        full, _ = model.forward(params, {"tokens": tokens}, hook)
+        pos = torch.full((B,), S - k, dtype=torch.int32, device="cuda")
+        lost, _ = model.decode_step(params, tokens[:, S - k:S - k + 1],
+                                    model.init_cache(B, S, torch.float32, "cuda"), pos, hook)
+        lost = float((lost - full[:, S - k]).abs().max())
+        cache = model.init_cache(B, S, torch.float32, "cuda")
+        lg, cache = model.prefill(params, {"tokens": tokens[:, :S - k]}, cache, hook)
+        errs = [float((lg - full[:, S - k - 1]).abs().max())]
+        for t in range(S - k, S):
+            pos = torch.full((B,), t, dtype=torch.int32, device="cuda")
+            lg, cache = model.decode_step(params, tokens[:, t:t + 1], cache, pos, hook)
+            errs.append(float((lg - full[:, t]).abs().max()))
+    amax = float(full.abs().max())
+    tol = DECODE_VS_FORWARD_TOL * amax
+    del full, cache
+    if not all(math.isfinite(e) for e in errs) or max(errs) > tol:
+        fail(f"{model.cfg.name}: prefill + decode differ from the forward at the same "
+             f"positions: {errs} (limit {tol:.3e})")
+    if not lost > tol:
+        fail(f"{model.cfg.name}: a decode step from a fresh cache is within the limit "
+             f"({lost:.3e} <= {tol:.3e}): the check cannot see a lost state")
+    return {"steps": k, "max_abs_err": max(errs), "per_position": errs, "limit": tol,
+            "max_abs_logit": amax, "fresh_cache_err": lost}
+
+
+def _packed_linears(art) -> int:
+    """Packed matmuls of one forward step: every (stacked) packed node of
+    the blocks once per layer, plus the head."""
+    from repro_torch.interop import flatten_paths
+
+    n = 0
+    for path, leaf in flatten_paths(art.params).items():
+        if path.endswith("/qscale"):
+            n += leaf.shape[0] if path.split("/")[0] != "head" else 1
+    return n
+
+
+def _serve_recurrent(torch, tag, cfg, model, art, qm_kernel, serve) -> dict:
+    """The fixed batch (8 x 64 prompt, 32 generated) from the packed
+    artifact: every matmul of the two prefills (warm-up and timed) on K2's
+    tensor-core tile and of the 32 decode steps on K1's decode body,
+    counted; the plain path replays the tokens; prefill + decode against
+    the forward on the card; the scans' and mLSTM chunks' share of a
+    prefill."""
+    from repro_torch.data import Corpus, CorpusConfig
+
+    prompts = Corpus(CorpusConfig(vocab=cfg.vocab)).sample(8, 64, seed=7)
+    batch = {"tokens": torch.from_numpy(prompts).cuda()}
+    n_lin = _packed_linears(art)
+    (gen_toks, sst), served, bodies = _counted({"qmatmul": qm_kernel}, lambda:
+                                               serve.run_prefill_decode(
+        model, art.params, batch, batch_size=8, prompt_len=64, gen_len=32,
+        hook=art.hook(), tag=tag))
+    # a prefill's head runs on the last token only: 8 rows, K1
+    want = {"qgemv": 32 * n_lin + 2, "qmatmul": 2 * (n_lin - 1)}
+    if ({k: served[k] for k in want} != want
+            or bodies["qgemv"]["gemv_tc"] != served["qgemv"]
+            or bodies["qmatmul"]["tc"] != served["qmatmul"]):
+        fail(f"serving {tag}: launches {served} (expected {want}: {n_lin} packed "
+             f"matmuls a step), bodies {bodies}")
+    err, tol, agree = _kernel_vs_plain(torch, model, art.params, batch, gen_toks, tag)
+    tokens = torch.cat([batch["tokens"], gen_toks[:, :DECODE_VS_FORWARD_STEPS]], 1)
+    dvf = _decode_vs_forward(torch, model, art.params, art.hook(), tokens,
+                             DECODE_VS_FORWARD_STEPS)
+    shares = _prefill_shares(torch, model, art.params, art.hook(), batch)
+    distinct = len(torch.unique(gen_toks))
+    print(f"[{tag} serve] kernel launches {served} ({n_lin} packed matmuls a step), "
+          f"bodies {bodies['qmatmul']} / {bodies['qgemv']}; logits kernel vs plain: max "
+          f"abs err {err:.3e} (tol {tol:.3e}); greedy token agreement {agree:.4f}; "
+          f"{distinct} distinct tokens; prefill + {dvf['steps']} decode steps vs the "
+          f"forward: max abs err {dvf['max_abs_err']:.3e} (limit {dvf['limit']:.3e}; a "
+          f"step from a fresh cache {dvf['fresh_cache_err']:.3e}); "
+          f"prefill {sst['t_prefill'] * 1e3:.2f} ms ({sst['prefill_tok_s']:.1f} tok/s), "
+          f"decode {sst['t_decode'] * 1e3 / 31:.2f} ms a step ({sst['tok_s']:.1f} tok/s); "
+          f"one prefill between CUDA events {shares['prefill_ms']:.2f} ms, of it the "
+          f"associative scans {shares['associative_scan_ms']:.2f} ms "
+          f"({shares['associative_scan_share']:.3f}, {shares['associative_scan_calls']} "
+          f"calls) and the mLSTM chunks {shares['mlstm_chunk_ms']:.2f} ms "
+          f"({shares['mlstm_chunk_share']:.3f}, {shares['mlstm_chunk_calls']} calls)")
+    if distinct < MIN_DISTINCT_TOKENS:
+        fail(f"serving {tag}: the greedy tokens hardly vary ({distinct} distinct)")
+    return {"launches": served, "bodies": bodies, "packed_matmuls_a_step": n_lin,
+            "logits_max_abs_err": err, "logits_tol": tol, "token_agreement": agree,
+            "decode_vs_forward": dvf, "prefill_shares": shares, "stats": sst,
+            "decode_ms_a_step": sst["t_decode"] * 1e3 / 31,
+            "prefill_ms": sst["t_prefill"] * 1e3}
+
+
+def _calibrate_recurrent(torch, tag, cfg, model, params, fq_kernel, fq_ref, qm_kernel,
+                         serve, workdir: Path):
+    """BRECQ W4 through ``repro_torch.core.quantize`` (block units,
+    RECURRENT_SEQS x CALIB_LEN tokens, minibatch 8, RECURRENT_ITERS a block,
+    streamed Fisher), every K5 call shadowed by its plain version; BRECQ
+    closer to FP than RTN on held-out logits; export, verified load, block
+    weights equal to params_q bit for bit. Returns (loaded artifact, the
+    calibration's record)."""
+    from repro_torch.core import ReconConfig, quantize
+    from repro_torch.data import Corpus, CorpusConfig, make_batches
+
+    corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
+    calib = make_batches(corpus, RECURRENT_SEQS // 8, 8, CALIB_LEN, seed=1)
+    held = {k: t.cuda() for k, t in
+            make_batches(corpus, 1, HELDOUT_SEQS, CALIB_LEN, seed=2)[0].items()}
+    rc = ReconConfig(w_bits=4, iters=RECURRENT_ITERS, calib_bs=8)
+    res, launches, shadow, others, wall, peak = _counted_fq(
+        torch, fq_kernel, fq_ref, qm_kernel, lambda: quantize(model, params, calib, rc))
+    st = res.stats
+    expect, _ = _fq_expected(model, res)
+    print(f"[{tag}] {cfg.name} ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+          f"{cfg.vocab}), W4, {RECURRENT_SEQS}x{CALIB_LEN} tokens, iters {rc.iters}, "
+          f"calib_bs {rc.calib_bs}: calib_wall_s {st['calib_wall_s']:.2f}, fisher_wall_s "
+          f"{st['fisher_wall_s']:.2f}, calib_iters_per_s {st['calib_iters_per_s']:.1f}, "
+          f"calib_peak_bytes {st['calib_peak_bytes']} (device peak {peak} B); wall "
+          f"{wall:.2f}s; {st['n_units']} units; fakequant launches {launches} (expected "
+          f"{expect}); shadowed calls {shadow['calls']}, mismatches "
+          f"{shadow['mismatches']}; unit retries {st['unit_retries']}, fallbacks "
+          f"{st['unit_fallbacks']}, OOM halvings {st['unit_oom_halvings']}")
+    if launches != expect:
+        fail(f"{tag} calibration launched fakequant {launches} times, expected {expect}")
+    if any(others.values()):
+        fail(f"{tag} calibration launched packed-matmul kernels: {others}")
+    if shadow["mismatches"] or shadow["calls"] != launches:
+        fail(f"fakequant against its plain version during {tag} calibration: {shadow}")
+    for u in st["units"]:
+        print(f"[{tag}] unit {u['unit']}: {u['paths']} weights, rtn_recon_mse "
+              f"{u['rtn_recon_mse']:.4e} final_recon_mse {u['final_recon_mse']:.4e} "
+              f"retries {u['retries']} fallback {u['fallback']} opt_wall_s "
+              f"{u['opt_wall_s']:.2f}")
+
+    rtn_params = _rtn_params(model, params, res, held)
+    with torch.no_grad():
+        fp = model.forward(params, held)[0]
+        mse = {"brecq": _logits_mse(torch, model, fp, held, res.params_q),
+               "rtn": _logits_mse(torch, model, fp, held, rtn_params),
+               "fp_mean_square": float(torch.mean(fp ** 2))}
+    del rtn_params, fp
+    print(f"[{tag}] held-out logits MSE vs FP ({HELDOUT_SEQS}x{CALIB_LEN}): BRECQ-W4 "
+          f"{mse['brecq']:.4e}, RTN-W4 {mse['rtn']:.4e} (ratio "
+          f"{mse['brecq'] / mse['rtn']:.4f}; FP logits mean square "
+          f"{mse['fp_mean_square']:.4e})")
+    if not all(math.isfinite(x) for x in mse.values()) or mse["brecq"] >= mse["rtn"]:
+        fail(f"{tag}: BRECQ-W4 logits are not closer to FP than RTN-W4's: {mse}")
+
+    t0 = time.perf_counter()
+    art, n_blocks = _export_verified(torch, model, res, serve, workdir / f"{tag}_w4", tag)
+    print(f"[{tag}] artifact {art.nbytes()} B ({art.manifest['family']}) exported, saved "
+          f"and loaded verified in {time.perf_counter() - t0:.1f}s; the {n_blocks} "
+          f"block weights equal params_q bit for bit")
+    keep = ("calib_wall_s", "fisher_wall_s", "calib_iters_per_s", "calib_peak_bytes",
+            "unit_retries", "unit_fallbacks", "unit_oom_halvings", "unit_cache")
+    return art, {"launches": launches, "expected_launches": expect, "shadow": shadow,
+                 "stats": {k: st[k] for k in keep}, "device_peak_bytes": peak,
+                 "wall_s": wall, "logits_mse": mse, "artifact_bytes": art.nbytes(),
+                 "units": [{k: u[k] for k in ("unit", "paths", "rtn_recon_mse",
+                                              "final_recon_mse", "retries", "fallback",
+                                              "opt_wall_s")} for u in st["units"]]}
+
+
+def phase_xlstm(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> dict:
+    """xlstm-350m at full width and depth (24 layers: 4 blocks of 5 mLSTM +
+    1 sLSTM), random weights from seed 0: BRECQ W4 calibration with every K5
+    call shadowed, BRECQ against RTN on held-out logits, export and verified
+    load, and the fixed batch from the packed artifact through K2 and K1,
+    replayed by the plain path and held against the forward."""
+    from repro_torch.deploy import tree_bytes
+    from repro_torch.models import get_model
+
+    t_phase = time.perf_counter()
+    cfg, model = get_model("xlstm_350m")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    fp_bytes = tree_bytes(params)
+    art, calib = _calibrate_recurrent(torch, "xlstm", cfg, model, params, fq_kernel,
+                                      fq_ref, qm_kernel, serve, workdir)
+    del params
+    torch.cuda.empty_cache()
+    served = _serve_recurrent(torch, "xlstm", cfg, model, art, qm_kernel, serve)
+    del art
+    torch.cuda.empty_cache()
+    return {"calib": calib, "serve": served, "fp_bytes": fp_bytes,
+            "phase_wall_s": time.perf_counter() - t_phase}
+
+
+def phase_hymba(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> dict:
+    """hymba-1.5b at full width. At full depth (32 layers): RTN W4 packed on
+    the card and the fixed batch through K2 and K1, replayed by the plain
+    path and held against the forward. Cut to HYMBA_CALIB_LAYERS: BRECQ W4
+    with every K5 call shadowed, export, verified load, and the calibrated
+    artifact served the same way."""
+    from repro_torch.deploy import rtn_artifact, tree_bytes
+    from repro_torch.models import build_model, get_config
+
+    t_phase = time.perf_counter()
+    cfg = get_config("hymba_1_5b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    fp_bytes = tree_bytes(params)
+    t0 = time.perf_counter()
+    art = rtn_artifact(params, 4, None, cfg=cfg)
+    del params
+    torch.cuda.empty_cache()
+    print(f"[hymba] {cfg.name} at full width and depth ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.hd}, window "
+          f"{cfg.hymba_window}, SSM d_inner {int(cfg.d_model * cfg.ssm_expansion)} state "
+          f"{cfg.ssm_state}, d_ff {cfg.d_ff}, vocab {cfg.vocab}): RTN W4 artifact "
+          f"{art.nbytes()} B vs fp {fp_bytes} B, made on the card in "
+          f"{time.perf_counter() - t0:.1f}s")
+    full = _serve_recurrent(torch, "hymba", cfg, model, art, qm_kernel, serve)
+    full.update(artifact_bytes=art.nbytes(), fp_bytes=fp_bytes)
+    del art
+    torch.cuda.empty_cache()
+
+    cut = dataclasses.replace(cfg, n_layers=HYMBA_CALIB_LAYERS)
+    model = build_model(cut)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    art, calib = _calibrate_recurrent(torch, "hymba_calib", cut, model, params,
+                                      fq_kernel, fq_ref, qm_kernel, serve, workdir)
+    del params
+    torch.cuda.empty_cache()
+    calib["serve"] = _serve_recurrent(torch, "hymba_calib", cut, model, art, qm_kernel,
+                                      serve)
+    calib["reduced"] = {"n_layers": [cfg.n_layers, HYMBA_CALIB_LAYERS],
+                        "why": "chip time: the width stays, the depth is cut"}
+    del art
+    torch.cuda.empty_cache()
+    return {"full_depth": full, "calib": calib,
+            "phase_wall_s": time.perf_counter() - t_phase}
 
 
 TIMED_KEYS = ("ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms")
@@ -2504,7 +2916,7 @@ def _layer(rows, shapes, **sel) -> dict:
 
 
 def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
-                long_engine, calib_moe, mixed, family) -> dict:
+                long_engine, calib_moe, mixed, family, recurrent) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
@@ -2530,7 +2942,10 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     engines, fakequant's calibrating whisper, and the times at their new
     shapes (qgemv ``vlm_mlp_*`` on 8,192 x 28,672; qmatmul ``whisper_enc_*``
     at M 12,000 and ``vlm_xkv_*`` at M 8,192, K 8,192; kv_decode
-    ``danube_*`` and ``gemma3_*`` on the paged entry)."""
+    ``danube_*``, ``gemma3_*`` and ``internlm2_*`` on the paged entry). So do
+    the recurrent families' (``recurrent``): K1's and K2's launches serving
+    xlstm-350m and hymba-1.5b, K5's calibrating them, and the times of all
+    three at their new shapes (``recurrent_shapes``)."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
             "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
@@ -2556,6 +2971,7 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
             entry.update({f"m512_{k}": big[k] for k in (*TIMED_KEYS, "bound_by")})
             entry["m512_body"] = big["bodies"]
         entry.update(_family_fields(family, name))
+        entry.update(_recurrent_fields(recurrent, name))
         out.append(entry)
     t = kv_timed["paged"]
     kv = {
@@ -2623,8 +3039,30 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
         "mixed_launches": sum(mixed["fq_launches"].values()),
         "whisper_launches": family["whisper"]["launches"],
         **{f"experts_{k}": fq["experts"][k]
-           for k in ("ms", "plain_ms", "bound_ms", "bound_by")}})
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **_recurrent_fields(recurrent, "fakequant")})
     return {"kernels": out}
+
+
+def _recurrent_fields(recurrent, name) -> dict:
+    """One kernel's added fields from the recurrent families' paths (K1, K2
+    and K5): its launches serving (K1, K2) or calibrating (K5) xlstm-350m,
+    hymba-1.5b at full depth and the calibrated hymba cut, and its times at
+    the families' new shapes (a row a shape: K1 and K2 at W4, K5 hard at
+    W2)."""
+    x, h = recurrent["xlstm"], recurrent["hymba"]
+    if name == "fakequant":
+        out = {"xlstm_launches": x["calib"]["launches"],
+               "hymba_launches": h["calib"]["launches"]}
+    else:
+        out = {"xlstm_launches": x["serve"]["launches"][name],
+               "hymba_launches": h["full_depth"]["launches"][name],
+               "hymba_calib_launches": h["calib"]["serve"]["launches"][name]}
+    out["recurrent_max_abs_err"] = recurrent["kernels"]["errs"][name]
+    keys = ("label", "M", "K", "N", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    out["recurrent_shapes"] = [{k: r.get(k) for k in keys}
+                               for r in recurrent["kernels"]["rows"][name]]
+    return out
 
 
 def _family_fields(family, name) -> dict:
@@ -2638,7 +3076,7 @@ def _family_fields(family, name) -> dict:
             out[f"{arch}_engine_launches"] = d["launches"]["kv_decode"]
             out[f"{arch}_engine_body_launches"] = d["bodies"]["kv_decode"]
             out[f"{arch}_engine_entry_launches"] = d["bodies"]["kv_decode_entry"]
-        labels = ("danube", "gemma3")
+        labels = ("danube", "gemma3", "internlm2")
     else:
         out["whisper_launches"] = family["whisper"]["serve"]["launches"][name]
         out["vlm_launches"] = family["vlm"]["launches"][name]
@@ -2704,6 +3142,12 @@ def main(argv=None) -> None:
                                           Path(tmp))
         family["vlm"] = phase_vlm(torch, kernel, serve, Path(tmp))
         family["dense"] = phase_dense_cfgs(torch, serve, kernels)
+        recurrent = {"kernels": phase_recurrent_kernels(torch, kernel, ref, pack,
+                                                        fq_kernel, fq_ref)}
+        recurrent["xlstm"] = phase_xlstm(torch, fq_kernel, fq_ref, kernel, serve,
+                                         Path(tmp))
+        recurrent["hymba"] = phase_hymba(torch, fq_kernel, fq_ref, kernel, serve,
+                                         Path(tmp))
 
     line = kernel_line(errs, rows, kv_err, kv_timed, launches, bodies,
                        {"err": moe_err, "rows": moe_rows,
@@ -2711,7 +3155,7 @@ def main(argv=None) -> None:
                         "bodies": moe["fixed"]["bodies"]},
                        {"err": fq_err, "rows": fq_rows, "launches": calib["launches"],
                         "experts": fq_experts},
-                       long_engine, calib_moe, mixed, family)
+                       long_engine, calib_moe, mixed, family, recurrent)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -2726,7 +3170,7 @@ def main(argv=None) -> None:
              "moe_timings": moe_rows,
              "moe": moe, "fakequant_timings": fq_rows, "calib": calib,
              "mixed": mixed, "calib_moe": calib_moe, "fakequant_experts": fq_experts,
-             "family": family,
+             "family": family, "recurrent": recurrent,
              "kernels": line["kernels"],
              "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"[wall] wall_s {time.perf_counter() - t_start:.1f}")

@@ -17,14 +17,17 @@ The port of the JAX package's ``repro.core.reconstruction``. Pipeline:
 Everything runs where the params are (``interop.params_from_numpy(...,
 device=)``); the calibration batches are moved there. The hardened
 forward and ``bake`` run K5 (``kernels/fakequant``) on the card, the
-MoE experts' stacked (E, K, N) weights included. The port builds the
-dense, MoE, VLM and encoder-decoder families (a MoE unit spans the
-``dense0`` and ``moe`` stacks through the same walker, and the router's
-aux loss is dropped, as in JAX; a VLM unit's cross-attention reads
-``batch["patches"]``; an encoder-decoder model runs its encoder units,
-then the boundary, the encoder's norm and the token embedding, in f32,
-then its decoder units over the memory); the recurrent families raise
-``NotImplementedError`` when their model is built.
+MoE experts' stacked (E, K, N) weights included. The port builds every
+family of the JAX package: dense, MoE (a MoE unit spans the ``dense0``
+and ``moe`` stacks through the same walker, and the router's aux loss is
+dropped, as in JAX), VLM (a unit's cross-attention reads
+``batch["patches"]``), encoder-decoder (the encoder units, then the
+boundary, the encoder's norm and the token embedding, in f32, then the
+decoder units over the memory) and the recurrent ones (xLSTM, hymba). A
+recurrent block runs its parallel form over the whole calibration
+sequence from the zero state, as in JAX, so no state crosses a unit
+boundary and the walker needs no branch for it; AdaRound's gradient flows
+through the scans.
 """
 from __future__ import annotations
 

@@ -15,7 +15,8 @@ model its ``frames`` (:func:`fixed_batch`). ``--engine`` serves synthetic
 streams with staggered arrivals through the continuous-batching engine
 (``repro_torch.serve_engine``) over a paged KV pool instead; ``--batch`` is
 then the slot count. The engine takes attention-only models: a
-cross-attention layer raises, as in the JAX package.
+cross-attention or recurrent layer (xLSTM, hymba) raises, as in the JAX
+package; those families serve through the fixed batch.
 
 Packed weights stay int codes on the device end to end: every linear runs
 through ``QuantHook.packed_matmul`` -> ``qmm``, which launches the CUDA

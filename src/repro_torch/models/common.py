@@ -198,6 +198,58 @@ def lm_head(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# activations with JAX's formulas, and the associative scan
+# ---------------------------------------------------------------------------
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: log(1 + e^x) = logaddexp(x, 0) at every x
+    (``torch.nn.functional.softplus`` returns x itself above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: -softplus(-x)."""
+    return -softplus(-x)
+
+
+def associative_scan(fn, elems: tuple, dim: int) -> tuple:
+    """Inclusive scan of the tuple of tensors ``elems`` along ``dim`` under
+    the associative ``fn(left, right) -> combined`` (tuples of tensors).
+
+    The recursion of ``jax.lax.associative_scan``: combine adjacent pairs,
+    scan the half, then fill in the even positions, so the operands meet in
+    JAX's order. It runs about 2 * log2(S) rounds of whole-tensor ops and
+    stays differentiable.
+    """
+    dim %= elems[0].ndim
+    n = elems[0].shape[dim]
+    if n < 2:
+        return elems
+
+    def sl(t, start, stop=None, step=1):
+        idx = [slice(None)] * t.ndim
+        idx[dim] = slice(start, stop, step)
+        return t[tuple(idx)]
+
+    odd = associative_scan(fn, fn(tuple(sl(e, 0, -1, 2) for e in elems),
+                                  tuple(sl(e, 1, None, 2) for e in elems)), dim)
+    left = odd if n % 2 else tuple(sl(e, 0, -1) for e in odd)
+    even = fn(left, tuple(sl(e, 2, None, 2) for e in elems))
+    even = tuple(torch.cat([sl(e, 0, 1), r], dim=dim) for e, r in zip(elems, even))
+    return tuple(_interleave(a, b, dim) for a, b in zip(even, odd))
+
+
+def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
+    """a[0], b[0], a[1], b[1], ... along ``dim``; ``a`` may hold one more."""
+    nb = b.shape[dim]
+    pairs = torch.stack([a.narrow(dim, 0, nb), b], dim=dim + 1).flatten(dim, dim + 1)
+    if a.shape[dim] == nb:
+        return pairs
+    return torch.cat([pairs, a.narrow(dim, nb, 1)], dim=dim)
+
+
+# ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------
 

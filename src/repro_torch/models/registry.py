@@ -8,8 +8,7 @@ from ..configs.base import ArchConfig
 from .encdec import EncDecLM
 from .transformer import LM
 
-# the JAX registry's archs; the ssm and hybrid families raise
-# NotImplementedError when their model is built (models/transformer.py)
+# the JAX registry's archs
 ARCH_IDS = [
     "xlstm_350m",
     "deepseek_moe_16b",

@@ -1,4 +1,5 @@
-"""Decoder-only LM over the stack/sub-layer graph: dense, MoE and VLM.
+"""Decoder-only LM over the stack/sub-layer graph: dense, MoE, VLM and the
+recurrent families.
 
 A model is: embed -> [stack_0 ... stack_k] -> final norm -> head. Each
 *stack* is ``n`` identical blocks whose params are stacked along a
@@ -8,11 +9,19 @@ place of ``lax.scan``: layer ``l`` reads the views ``leaf[l]``.
 
 The port covers the dense family (uniform, sliding-window and
 local:global attention), the MoE family (a ``dense0`` stack of leading
-dense-FFN layers, then a ``moe`` stack) and the VLM family (groups of
+dense-FFN layers, then a ``moe`` stack), the VLM family (groups of
 self-attention layers closed by a tanh-gated cross-attention layer over
-``batch["patches"]``); ``encdec.EncDecLM`` builds the encoder-decoder
-family on the same sub-layers. The recurrent families raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+``batch["patches"]``), the ``ssm`` family (xLSTM: blocks of mLSTM
+sub-layers closed by an sLSTM one, no FFN) and the ``hybrid`` family
+(Hymba: sliding-window attention and a selective SSM on the same input,
+averaged, then an MLP); ``encdec.EncDecLM`` builds the encoder-decoder
+family on the same sub-layers.
+
+Caches are written in place: attention through its views, and every
+recurrent state leaf (``h``, ``conv``, ``C``, ``n``, ``m``, ``c``) by
+``copy_`` into the layer's view of the stacked cache. A recurrent step
+consumes one token, so ``decode_step`` on a model with a recurrent mixer
+takes C = 1.
 """
 from __future__ import annotations
 
@@ -27,20 +36,18 @@ from . import attention as attn_mod
 from . import common as cm
 from . import mlp as mlp_mod
 from . import moe as moe_mod
+from . import ssm as ssm_mod
+from . import xlstm as xlstm_mod
 from .common import NO_QUANT, Ctx, QuantHook
 
 Params = Any
 
-# ROADMAP items that bring the families the port does not cover yet
-_FAMILY_TODO = {
-    "ssm": "the other-families slice (ROADMAP module 14: xLSTM)",
-    "hybrid": "the other-families slice (ROADMAP module 14: hymba)",
-}
+RECURRENT_MIXERS = ("mlstm", "slstm", "hymba")
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    mixer: str  # 'attn' | 'xattn' (cross-attention over ctx.extras["memory"])
+    mixer: str  # 'attn' | 'xattn' (over ctx.extras["memory"]) | 'mlstm' | 'slstm' | 'hymba'
     window: Optional[int] = None
     ffn: Optional[str] = None  # 'mlp' | 'moe' | None
     causal: bool = True
@@ -58,6 +65,16 @@ def build_stacks(cfg: ArchConfig) -> list[StackDef]:
     if cfg.enc_dec:
         raise ValueError(f"{cfg.name} is an encoder-decoder config: build it "
                          f"with models.encdec.EncDecLM (registry.build_model)")
+    if cfg.family == "ssm":  # xlstm
+        k = cfg.slstm_every or 6
+        if cfg.n_layers % k:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not split into "
+                             f"blocks of {k - 1} mLSTM + 1 sLSTM")
+        subs = tuple([SubLayer("mlstm")] * (k - 1) + [SubLayer("slstm")])
+        return [StackDef("body", cfg.n_layers // k, subs)]
+    if cfg.family == "hybrid":
+        return [StackDef("body", cfg.n_layers,
+                         (SubLayer("hymba", window=cfg.hymba_window, ffn="mlp"),))]
     if cfg.family == "vlm":
         k = cfg.xattn_every or 5
         if cfg.n_layers % k:
@@ -78,9 +95,7 @@ def build_stacks(cfg: ArchConfig) -> list[StackDef]:
                                (SubLayer("attn", ffn="moe"),)))
         return stacks
     if cfg.family != "dense":
-        todo = _FAMILY_TODO.get(cfg.family, "a later slice of the port")
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family comes with {todo}")
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
     if cfg.local_global is not None:
         nl, ng = cfg.local_global
         grp = nl + ng
@@ -110,6 +125,14 @@ def _moe_spec(cfg: ArchConfig, impl: str) -> moe_mod.MoESpec:
                            n_shared=m.n_shared, impl=impl)
 
 
+def _xlstm_spec(cfg: ArchConfig) -> xlstm_mod.XLSTMSpec:
+    return xlstm_mod.XLSTMSpec(cfg.d_model, cfg.n_heads, cfg.xlstm_expansion)
+
+
+def _ssm_spec(cfg: ArchConfig) -> ssm_mod.SSMSpec:
+    return ssm_mod.SSMSpec(cfg.d_model, int(cfg.d_model * cfg.ssm_expansion), cfg.ssm_state)
+
+
 def _norm_init(cfg: ArchConfig, device):
     if cfg.norm == "rms":
         return cm.rmsnorm_init(cfg.d_model, device)
@@ -133,15 +156,27 @@ class LM:
         self.stacks = build_stacks(cfg)
         self.moe_impl = moe_impl
 
+    @property
+    def recurrent(self) -> bool:
+        """Whether a sub-layer carries recurrent state (one token a step)."""
+        return any(s.mixer in RECURRENT_MIXERS for st in self.stacks for s in st.subs)
+
     # -- init ---------------------------------------------------------------
 
     def _init_sub(self, gen: torch.Generator, sub: SubLayer) -> Params:
         cfg = self.cfg
-        cross = sub.mixer == "xattn"
-        p: dict = {"norm1": _norm_init(cfg, gen.device),
-                   "attn": attn_mod.init(gen, _attn_spec(cfg, sub, cross))}
-        if cross:  # the gate starts shut, as in JAX: tanh(0) = 0
-            p["xgate"] = torch.zeros((), dtype=torch.float32, device=gen.device)
+        p: dict = {"norm1": _norm_init(cfg, gen.device)}
+        if sub.mixer == "mlstm":
+            p["mix"] = xlstm_mod.mlstm_init(gen, _xlstm_spec(cfg))
+        elif sub.mixer == "slstm":
+            p["mix"] = xlstm_mod.slstm_init(gen, _xlstm_spec(cfg))
+        else:
+            cross = sub.mixer == "xattn"
+            p["attn"] = attn_mod.init(gen, _attn_spec(cfg, sub, cross))
+            if cross:  # the gate starts shut, as in JAX: tanh(0) = 0
+                p["xgate"] = torch.zeros((), dtype=torch.float32, device=gen.device)
+            if sub.mixer == "hymba":
+                p["ssm"] = ssm_mod.init(gen, _ssm_spec(cfg))
         if sub.ffn == "mlp":
             p["norm2"] = _norm_init(cfg, gen.device)
             p["mlp"] = mlp_mod.init(gen, _mlp_spec(cfg, sub))
@@ -179,8 +214,16 @@ class LM:
                                  _attn_spec(cfg, sub, cross=True), h,
                                  kv_x=ctx.extras["memory"])
             x = x + torch.tanh(p["xgate"]) * out
+        elif sub.mixer == "mlstm":
+            x = x + xlstm_mod.mlstm_apply(sc.scoped("mix"), p["mix"], _xlstm_spec(cfg), h)
+        elif sub.mixer == "slstm":
+            x = x + xlstm_mod.slstm_apply(sc.scoped("mix"), p["mix"], _xlstm_spec(cfg), h)
         else:
-            x = x + attn_mod.apply(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub), h)
+            out = attn_mod.apply(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub), h)
+            if sub.mixer == "hymba":
+                s = ssm_mod.apply(sc.scoped("ssm"), p["ssm"], _ssm_spec(cfg), h)
+                out = 0.5 * (out + s)
+            x = x + out
         if sub.ffn == "mlp":
             h = _norm(cfg, p["norm2"], x)
             x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub), h)
@@ -248,13 +291,20 @@ class LM:
             shape = (batch, cfg.n_patches, spec.n_kv_heads, spec.head_dim)
             return {"xk": torch.zeros(shape, dtype=dtype, device=device),
                     "xv": torch.zeros(shape, dtype=dtype, device=device)}
-        return {"attn": attn_mod.init_cache(_attn_spec(cfg, sub), batch, max_len,
-                                            dtype, device)}
+        if sub.mixer == "mlstm":
+            return {"mix": xlstm_mod.mlstm_init_cache(_xlstm_spec(cfg), batch, device)}
+        if sub.mixer == "slstm":
+            return {"mix": xlstm_mod.slstm_init_cache(_xlstm_spec(cfg), batch, device)}
+        c = {"attn": attn_mod.init_cache(_attn_spec(cfg, sub), batch, max_len,
+                                         dtype, device)}
+        if sub.mixer == "hymba":
+            c["ssm"] = ssm_mod.init_cache(_ssm_spec(cfg), batch, dtype, device)
+        return c
 
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16,
                    device=None):
-        """Dense KV caches (and cross-attention K/V), stacked along the
-        layer dim like the params."""
+        """Dense KV caches (cross-attention K/V, recurrent states), stacked
+        along the layer dim like the params."""
         cache = {}
         for stack in self.stacks:
             layers = [{f"sub{i}": self._init_sub_cache(s, batch, max_len, dtype, device)
@@ -315,9 +365,29 @@ class LM:
                 out = attn_mod.xattn_decode(sc.scoped("attn"), p["attn"], spec, h,
                                             {"k": cache["xk"], "v": cache["xv"]})
             x = x + torch.tanh(p["xgate"]) * out
+        elif sub.mixer in ("mlstm", "slstm"):
+            mlstm = sub.mixer == "mlstm"
+            if step is attn_mod.prefill:
+                fn = xlstm_mod.mlstm_prefill if mlstm else xlstm_mod.slstm_prefill
+                out, state = fn(sc.scoped("mix"), p["mix"], _xlstm_spec(cfg), h)
+            else:
+                fn = xlstm_mod.mlstm_decode if mlstm else xlstm_mod.slstm_decode
+                out, state = fn(sc.scoped("mix"), p["mix"], _xlstm_spec(cfg), h,
+                                cache["mix"])
+            _write_state(cache["mix"], state)
+            x = x + out
         else:
             out, cache["attn"] = step(sc.scoped("attn"), p["attn"], _attn_spec(cfg, sub),
                                       h, cache["attn"])
+            if sub.mixer == "hymba":
+                spec = _ssm_spec(cfg)
+                if step is attn_mod.prefill:
+                    s, state = ssm_mod.prefill(sc.scoped("ssm"), p["ssm"], spec, h)
+                else:
+                    s, state = ssm_mod.decode(sc.scoped("ssm"), p["ssm"], spec, h,
+                                              cache["ssm"])
+                _write_state(cache["ssm"], state)
+                out = 0.5 * (out + s)
             x = x + out
         if sub.ffn == "mlp":
             x = x + mlp_mod.apply(sc.scoped("mlp"), p["mlp"], _mlp_spec(cfg, sub),
@@ -362,6 +432,9 @@ class LM:
         ``all_logits``.
         """
         B, C = tokens.shape
+        if C > 1 and self.recurrent:
+            raise ValueError(f"{self.cfg.name}: decode_step got {C} tokens a row; a "
+                             f"recurrent mixer steps one token at a time")
         positions = (pos[:, None] + torch.arange(C, device=pos.device)[None]).to(torch.int32)
         ctx = Ctx(cfg=self.cfg, positions=positions, quant=quant)
         if extras:
@@ -370,6 +443,13 @@ class LM:
         x = self._run_layers(ctx, params, x, cache, attn_mod.decode)
         logits = self.finish(params, x, ctx)
         return (logits if all_logits else logits[:, -1]), cache
+
+
+def _write_state(cache: dict, state: dict) -> None:
+    """A recurrent step's new state into the layer's views of the stacked
+    cache (``_run_layers`` keeps no returned cache)."""
+    for k, v in state.items():
+        cache[k].copy_(v)
 
 
 def _stack_trees(trees: list) -> Any:

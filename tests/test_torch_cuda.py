@@ -1,8 +1,10 @@
 """The CUDA kernels (qgemv, qmatmul, qmatmul_grouped, kv_decode and its paged
 entry, fakequant, on 2-D weights and on stacks of experts) against their
-plain PyTorch versions, on the card, and the serve engine's, the MoE
-layer's, the calibration's and the budgeted deployment's kernel paths (the
-measured cost table, ``serve --budget-bytes``).
+plain PyTorch versions, on the card, also at the recurrent families'
+shapes (N 8, 16 and 32,001; K 1,600 and 3,200), and the serve engine's,
+the MoE layer's, the calibration's, the budgeted deployment's (the
+measured cost table, ``serve --budget-bytes``) and the recurrent
+families' kernel paths.
 
 The kernels have no CPU mode, so every test here is marked
 ``requires_cuda`` and skips without a GPU. This file imports neither JAX
@@ -585,6 +587,26 @@ def test_qgemv_off_l2_shapes_match_plain(cuda, bits, k, n):
     assert kernel.BODY_LAUNCHES["qgemv"]["gemv_tc"] == before["gemv_tc"] + 1
 
 
+# the recurrent families' new shapes: xlstm's w_if (2,048 x 8: N 8, half a
+# decode block) and hymba's wB/wC (3,200 x 16), w_dt (3,200 x 3,200),
+# in_proj (1,600 x 6,400) and untied head (1,600 x 32,001: N not a multiple
+# of 16, so the narrower copies), at decode (K1) and the fixed batch's
+# prefill (K2, M 512)
+RECURRENT_QMM = [(2048, 8), (3200, 16), (3200, 3200), (1600, 6400), (1600, 32001)]
+
+
+@pytest.mark.parametrize("bits", [4, 2])
+@pytest.mark.parametrize("k,n", RECURRENT_QMM)
+@pytest.mark.parametrize("m", [1, 8, 512])
+def test_recurrent_family_shapes_match_plain(cuda, bits, k, n, m):
+    x, wp, s = case(bits, k, n, 1, m, cuda)
+    name, fn, plain, body = (("qgemv", kernel.qgemv, ref.qgemv_ref, "gemv_tc") if m <= 8
+                             else ("qmatmul", kernel.qmatmul, ref.qmatmul_ref, "tc"))
+    before = dict(kernel.BODY_LAUNCHES[name])
+    check(fn(x, wp, s, bits=bits), plain(x, wp, s, bits))
+    assert kernel.BODY_LAUNCHES[name][body] == before[body] + 1
+
+
 def test_kv_decode_paged_is_deterministic(cuda):
     paged, _ = paged_case(8, 12, 12, 64, 16, 128, cuda, holes=True, idle=1)
     assert spec.plan_kv_decode(8, 12, 2048, 64).split > 1
@@ -745,6 +767,25 @@ def test_fakequant_kernel_matches_plain(cuda, k, n, per_weight, bits):
         before = fq_kernel.LAUNCHES["fakequant"]
         got = fq_kernel.fakequant(w, v, s, qmin=cfg.qmin, qmax=cfg.qmax, hard=hard)
         assert fq_kernel.LAUNCHES["fakequant"] == before + 1
+        want = fakequant_ref(w, v, s, cfg.qmin, cfg.qmax, hard)
+        torch.cuda.synchronize()
+        if hard:
+            assert torch.equal(got, want)
+        else:
+            assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("k,n", [(2048, 8), (3200, 16), (1600, 32001), (1600, 6400)])
+@pytest.mark.parametrize("bits", [2, 4])
+def test_fakequant_recurrent_family_shapes_match_plain(cuda, k, n, bits):
+    """The recurrent families' calibrated leaves: N 8 and 16 (the vec4
+    body), 32,001 (the scalar body), K 1,600 and 3,200."""
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+    from repro_torch.kernels.fakequant.ref import fakequant_ref
+
+    w, v, s, cfg, _ = fq_case(k, n, False, cuda, bits)
+    for hard in (True, False):
+        got = fq_kernel.fakequant(w, v, s, qmin=cfg.qmin, qmax=cfg.qmax, hard=hard)
         want = fakequant_ref(w, v, s, cfg.qmin, cfg.qmax, hard)
         torch.cuda.synchronize()
         if hard:
@@ -930,3 +971,31 @@ def test_two_block_full_width_calibration_on_card(cuda):
     assert res.params_q["body"]["sub0"]["attn"]["wq"]["w"].is_cuda
     assert all(bool(torch.isfinite(v).all()) for v in res.v.values())
     assert res.stats["calib_iters_per_s"] > 0
+
+
+@pytest.mark.parametrize("arch", ["hymba_1_5b", "xlstm_350m"])
+def test_recurrent_families_serve_packed_on_card(cuda, arch):
+    """Reduced hymba (prompt past its window of 32) and xlstm, RTN W4 on the
+    card: prefill, then decode steps of the forward's own tokens, each
+    within 1e-4 * max|logit| of the packed forward at that position (the
+    recurrent state written in place at every step), through K1 and K2."""
+    from repro_torch.deploy import rtn_artifact
+    from repro_torch.models import get_model
+
+    cfg, model = get_model(arch, reduced=True)
+    art = rtn_artifact(model.init(torch.Generator(device=cuda).manual_seed(0)), 4, None,
+                       cfg=cfg)
+    hook = art.hook()
+    S, k = 48, 6
+    toks = torch.randint(0, cfg.vocab, (2, S), generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32).to(cuda)
+    kernel.reset_launches()
+    with torch.inference_mode():
+        full, _ = model.forward(art.params, {"tokens": toks}, hook)
+        cache = model.init_cache(2, S, torch.float32, cuda)
+        _, cache = model.prefill(art.params, {"tokens": toks[:, :S - k]}, cache, hook)
+        for t in range(S - k, S):
+            pos = torch.full((2,), t, dtype=torch.int32, device=cuda)
+            lg, cache = model.decode_step(art.params, toks[:, t:t + 1], cache, pos, hook)
+            check(lg, full[:, t])
+    assert kernel.LAUNCHES["qgemv"] > 0 and kernel.LAUNCHES["qmatmul"] > 0

@@ -245,10 +245,11 @@ def test_rejects_oversized_and_non_attention(weights):
     eng = tse.ServeEngine(model, tp, tse.EngineConfig(kv_dtype="int8", **ECFG))
     with pytest.raises(ValueError, match="max_len"):
         eng.submit(np.zeros(30, np.int32), 10)
-    # the port carries no recurrent family: a non-attention arch stops at
-    # get_model, and a stack with a recurrent mixer stops at the pool
-    with pytest.raises(NotImplementedError, match="xLSTM"):
-        get_model("xlstm_350m", reduced=True)
+    # a recurrent arch builds, and its mixers stop at the pool, as in JAX
+    _, xl = get_model("xlstm_350m", reduced=True)
+    xp = xl.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="attention-only"):
+        tse.ServeEngine(xl, xp, tse.EngineConfig(kv_dtype="int8", **ECFG))
     _, other = get_model("brecq_lm_100m", reduced=True)
     other.stacks = [StackDef("body", 4, (SubLayer("mlstm"),))]
     with pytest.raises(ValueError, match="attention-only"):

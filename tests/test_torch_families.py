@@ -1,6 +1,7 @@
 """Shared helpers (no tests) of the port's parity tests for the attention
 families (``test_torch_encdec.py``, ``test_torch_vlm.py``,
-``test_torch_dense_cfgs.py``): numpy-made params carried into both
+``test_torch_dense_cfgs.py``) and the recurrent ones
+(``test_torch_recurrent.py``): numpy-made params carried into both
 packages, the stub-modality inputs, and prefill + greedy decode through
 both.
 
@@ -20,6 +21,16 @@ from repro_torch.models import get_model
 
 TOL = 1e-4
 XGATE = 1.0
+# the SSM's f32 leaves near JAX's init (A = -(1..n), D 1, conv weights of
+# 0.1) with spread, and dt_bias so that dt = softplus(. - 2) is ~0.1: a state
+# that remembers a few dozen steps
+RECURRENT_FP = {
+    "A_log": lambda rng, s: (np.log(np.arange(1, s[-1] + 1)) + 0.1 * rng.standard_normal(s)
+                             ).astype(np.float32),
+    "D": lambda rng, s: (1.0 + 0.1 * rng.standard_normal(s)).astype(np.float32),
+    "dt_bias": lambda rng, s: (-2.0 + 0.5 * rng.standard_normal(s)).astype(np.float32),
+    "conv_w": lambda rng, s: (0.3 * rng.standard_normal(s)).astype(np.float32),
+}
 
 
 def models(arch):
@@ -39,6 +50,8 @@ def np_params(jmodel, seed=0, xgate=XGATE, w_scale=1.0):
         name = path[-1].key
         if name == "xgate":
             return np.full(s.shape, xgate, np.float32)
+        if name in RECURRENT_FP:
+            return RECURRENT_FP[name](rng, s.shape)
         if name == "g":
             return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
         if name in ("table", "enc_pos") or len(s.shape) < 2:

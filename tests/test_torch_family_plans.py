@@ -1,6 +1,8 @@
 """Launch plans (``kernels/spec.py``) at every shape the attention families
-give the kernels, at full width: whisper-small, llama-3.2-vision-90b,
-gemma3-12b, h2o-danube3-4b and internlm2-20b.
+and the recurrent families give the kernels, at full width: whisper-small,
+llama-3.2-vision-90b, gemma3-12b, h2o-danube3-4b, internlm2-20b, and
+xlstm-350m and hymba-1.5b (gate projections of N 8 and 16, a head of N
+32,001).
 
 Every packed linear of each config takes a tensor-core plan at decode
 (``plan_qgemv``, M <= 8) and at prefill (``plan_qmatmul``: the engine's
@@ -97,3 +99,47 @@ def test_danube_and_gemma3_decode_bodies():
     gemma = spec.plan_kv_decode(8, 8, 272, 256, 2)
     assert (danube.rows, danube.chunks) == (4, 1)
     assert (gemma.rows, gemma.chunks, gemma.units) == (2, 1, 4)
+
+
+def recurrent_shapes(arch) -> set:
+    """(K, N) of every packed linear of the recurrent families at full
+    width: xlstm's mLSTM (in_proj, wq/wk/wv, w_if with N = 2 x heads,
+    out_proj) and sLSTM (w_in, out_proj); hymba's attention, SSM (in_proj,
+    wB/wC with N = d_state, w_dt, out_proj) and MLP; both untied heads."""
+    cfg = get_config(arch)
+    d, V = cfg.d_model, cfg.vocab
+    if arch == "xlstm_350m":
+        di = int(d * cfg.xlstm_expansion)
+        return {(d, 2 * di), (di, di), (di, 2 * cfg.n_heads), (di, d), (d, 4 * di), (d, V)}
+    di = int(d * cfg.ssm_expansion)
+    return linear_shapes(cfg) | {(d, 2 * di), (di, cfg.ssm_state), (di, di), (di, d)}
+
+
+RECURRENT_CASES = [(arch, k, n) for arch in ("xlstm_350m", "hymba_1_5b")
+                   for k, n in sorted(recurrent_shapes(arch))]
+
+
+@pytest.mark.parametrize("arch,k,n", RECURRENT_CASES)
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_every_recurrent_linear_takes_a_tensor_core_plan(arch, k, n, bits):
+    """Decode at M <= 8, the fixed batch's prefill at 8 x 64 rows and a
+    calibration minibatch's 8 x 128."""
+    dec = spec.plan_qgemv(k, n, 1, bits)
+    assert dec.body == "gemv_tc" and dec.smem <= spec.SMEM_PER_BLOCK and grid_ok(dec)
+    for m in (8 * 64, 8 * 128):
+        pre = spec.plan_qmatmul(m, k, n, 1, bits)
+        assert pre.body == "tc" and pre.tile == "wide"
+        assert pre.smem <= spec.SMEM_PER_BLOCK and grid_ok(pre)
+
+
+def test_the_recurrent_slice_s_narrow_and_ragged_shapes():
+    """The shapes no earlier path gave K1: xlstm's w_if (N 8) and hymba's
+    wB/wC (N 16) in one decode block of 16 columns, and hymba's head (N
+    32,001, not a multiple of 16) on the 128-column decode tile."""
+    assert {(k, n) for k, n in recurrent_shapes("xlstm_350m") if n < 16} == {(2048, 8)}
+    assert (3200, 16) in recurrent_shapes("hymba_1_5b")
+    for k, n in ((2048, 8), (3200, 16)):
+        plan = spec.plan_qgemv(k, n, 1, 4)
+        assert (plan.tile, plan.grid) == ("dec16", (1, 1, 1))
+    head = spec.plan_qgemv(1600, 32001, 1, 4)
+    assert (head.tile, head.grid) == ("dec128", (251, 1, 1))

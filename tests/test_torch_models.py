@@ -141,16 +141,26 @@ def test_local_global_stack_matches_jax():
 
 
 def test_other_families_name_their_slice():
+    """The recurrent families build with JAX's stack layout (xLSTM: blocks
+    of mLSTM sub-layers closed by an sLSTM one; hymba: one hybrid sub-layer
+    with an MLP); an unknown family raises ValueError, an unknown arch
+    KeyError."""
+    from repro.models import get_config as j_get_config
+    from repro.models.transformer import build_stacks as j_build_stacks
     from repro_torch.configs.base import ArchConfig
 
+    def layout(stacks):
+        return [(s.name, s.n, [(u.mixer, u.window, u.ffn) for u in s.subs]) for s in stacks]
+
     cfg = ArchConfig(name="x", family="ssm", n_layers=2, d_model=8, n_heads=2,
-                     n_kv_heads=2, d_ff=8, vocab=16)
-    with pytest.raises(NotImplementedError, match="ROADMAP module 14: xLSTM"):
-        LM(cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP module 14: hymba"):
-        get_model("hymba_1_5b")
-    with pytest.raises(NotImplementedError, match="ROADMAP module 14: xLSTM"):
-        get_model("xlstm_350m")
+                     n_kv_heads=2, d_ff=8, vocab=16, slstm_every=2)
+    assert layout(LM(cfg).stacks) == [("body", 1, [("mlstm", None, None),
+                                                   ("slstm", None, None)])]
+    for arch in ("hymba_1_5b", "xlstm_350m"):
+        _, model = get_model(arch)
+        assert layout(model.stacks) == layout(j_build_stacks(j_get_config(arch)))
+    with pytest.raises(ValueError, match="unknown family"):
+        LM(dataclasses.replace(cfg, family="rwkv"))
     with pytest.raises(KeyError, match="unknown arch"):
         get_model("mamba_130m")
 
