@@ -9,6 +9,12 @@ package reads what the other wrote:
 A checkpoint only counts once ``manifest.json`` exists: the save writes
 into ``step_X.tmp`` and renames, so a preempted save is never mistaken
 for a complete one.
+
+Async: ``save_async`` copies every leaf to host numpy on the caller's
+thread, then hands the copy to a writer thread, so an in-place update
+after the call cannot tear the snapshot; ``wait`` joins the writer before
+the next save or exit. ``restore(step, like)`` puts each leaf back on its
+``like`` leaf's device with its dtype.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import json
 import os
 import re
 import shutil
+import threading
 import time
 from pathlib import Path
 from typing import Any, Optional
@@ -64,14 +71,47 @@ def _to_numpy(leaf) -> np.ndarray:
     return np.asarray(leaf)
 
 
+def _flatten(tree) -> dict[str, np.ndarray]:
+    """'/'-joined paths -> host copies (a CPU tensor's ``numpy()`` shares
+    its memory, so it is copied)."""
+    return {k: np.array(_to_numpy(v), copy=True)
+            for k, v in flatten_paths(tree, SEP).items()}
+
+
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[Exception] = None
 
     def save(self, step: int, tree: Any, meta: Optional[dict] = None):
-        flat = {k: _to_numpy(v) for k, v in flatten_paths(tree, SEP).items()}
+        self._write(step, _flatten(tree), meta or {})
+
+    def save_async(self, step: int, tree: Any, meta: Optional[dict] = None):
+        self.wait()
+        flat = _flatten(tree)  # on the caller's thread: a consistent view
+        self._thread = threading.Thread(
+            target=self._write_catching, args=(step, flat, meta or {}), daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        """Join the writer thread; re-raise what it raised."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _write_catching(self, step: int, flat: dict, meta: dict):
+        try:
+            self._write(step, flat, meta)
+        except Exception as e:  # handed to the caller by wait()
+            self._error = e
+
+    def _write(self, step: int, flat: dict, meta: dict):
         final = self.dir / f"step_{step:08d}"
         tmp = self.dir / f"step_{step:08d}.tmp"
         if tmp.exists():
@@ -80,7 +120,7 @@ class CheckpointManager:
         np.savez(tmp / "arrays.npz", **flat)
         (tmp / "manifest.json").write_text(json.dumps(
             {"step": step, "time": time.time(), "n_arrays": len(flat),
-             "meta": meta or {}}))
+             "meta": meta}))
         if final.exists():
             shutil.rmtree(final)
         os.replace(tmp, final)
@@ -102,6 +142,25 @@ class CheckpointManager:
     def latest_step(self) -> Optional[int]:
         steps = self.all_steps()
         return steps[-1] if steps else None
+
+    def restore(self, step: int, like: Any) -> Any:
+        """``like``'s nested dicts with every leaf read from the checkpoint
+        at its '/'-joined path, on that leaf's device with its dtype. A leaf
+        whose shape differs from ``like``'s raises (a checkpoint of another
+        configuration)."""
+        flat = flatten_paths(self.restore_nested(step), SEP)
+
+        def walk(node, prefix):
+            if isinstance(node, dict):
+                return {k: walk(v, prefix + (str(k),)) for k, v in node.items()}
+            path = SEP.join(prefix)
+            leaf = flat[path]
+            if leaf.shape != node.shape:
+                raise ValueError(f"checkpoint step {step} at {self.dir}: {path} has shape "
+                                 f"{tuple(leaf.shape)}, expected {tuple(node.shape)}")
+            return leaf.to(device=node.device, dtype=node.dtype)
+
+        return walk(like, ())
 
     def restore_nested(self, step: int, strict: bool = True) -> dict:
         """Rebuild nested dicts of CPU tensors from the flat '/'-joined

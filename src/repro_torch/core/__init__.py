@@ -5,4 +5,5 @@ from .adaround import BetaSchedule  # noqa: F401
 from .journal import (CalibJournal, CalibJournalError,  # noqa: F401
                       CalibrationInterrupted)
 from .quantizer import QConfig, QState, init_qstate, quantize_dequant  # noqa: F401
-from .reconstruction import PTQResult, ReconConfig, Walker, quantize  # noqa: F401
+from .reconstruction import (PTQResult, ReconConfig, Walker, quantize,  # noqa: F401
+                             rtn_on_scales)

@@ -806,3 +806,17 @@ def bake(model, params, qstates, v_all, embed_head) -> Params:
     for path, (st, cfg) in embed_head.items():
         set_leaf(path, lambda w, st=st, cfg=cfg: quantize_dequant(w, st, cfg))
     return params_q
+
+
+def rtn_on_scales(model, params, res: PTQResult, batch: dict) -> Params:
+    """The RTN baseline on ``res``'s own scales: every block weight rounded
+    to nearest on its calibrated scale (AdaRound's rounding logits at their
+    RTN start, ``adaround.init_v``), the embedding and head as ``res``
+    quantized them, baked into a copy of ``params``. Beside ``res.params_q``
+    it isolates what the learned rounding buys. ``batch`` (its first
+    sequence) walks the model to find the weights."""
+    weights = enumerate_weights(model, params, {k: t[:1] for k, t in batch.items()})
+    blocks = {p: s for p, s in res.qstates.items() if "." in p.split("/")[0]}
+    embed = {p: s for p, s in res.qstates.items() if p not in blocks}
+    v_rtn = {p: adaround.init_v(weights[p], *s) for p, s in blocks.items()}
+    return bake(model, params, blocks, v_rtn, embed)

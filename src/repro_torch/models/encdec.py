@@ -13,14 +13,15 @@ given ``memory``). BRECQ walks the encoder stack, then the decoder stack
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 from ..configs.base import ArchConfig
 from . import common as cm
 from .common import NO_QUANT, Ctx, QuantHook
-from .transformer import LM, StackDef, SubLayer, _layer, _norm, _norm_init, _stack_trees
+from .transformer import (LM, StackDef, SubLayer, _layer, _maybe_remat, _norm, _norm_init,
+                          _stack_trees)
 
 Params = Any
 
@@ -68,18 +69,21 @@ class EncDecLM(LM):
     # -- encoder ---------------------------------------------------------------
 
     def encode(self, params: Params, frames: torch.Tensor,
-               quant: QuantHook = NO_QUANT) -> torch.Tensor:
+               quant: QuantHook = NO_QUANT, *,
+               remat: Optional[str] = "none") -> torch.Tensor:
         """frames: (B, S_enc, d_model) precomputed embeddings (stub
-        frontend) -> the normed memory (B, S_enc, d_model)."""
+        frontend) -> the normed memory (B, S_enc, d_model); ``remat`` as
+        ``LM.forward``'s."""
         B, S, _ = frames.shape
         if S > cfg_max_enc(self.cfg):
             raise ValueError(f"{S} encoder positions > {cfg_max_enc(self.cfg)}")
         pos = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
         ctx = Ctx(cfg=self.cfg, positions=pos, quant=quant)
         x = frames + params["enc_pos"][:S]
+        block = _maybe_remat(lambda p, x: self.apply_block(ctx, self.enc_stack, p, x),
+                             remat)
         for layer in range(self.enc_stack.n):
-            x, _ = self.apply_block(ctx, self.enc_stack,
-                                    _layer(params["enc"], layer), x)
+            x, _ = block(_layer(params["enc"], layer), x)
         return _norm(self.cfg, params["enc_norm"], x)
 
     # -- joint forward -----------------------------------------------------------
@@ -98,3 +102,11 @@ class EncDecLM(LM):
         else:
             ctx.extras["memory"] = self.encode(params, batch["frames"], quant)
         return cm.embed_lookup(ctx, params["embed"], tokens), ctx
+
+    def forward(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
+                *, remat: Optional[str] = "none") -> tuple[torch.Tensor, torch.Tensor]:
+        """``LM.forward`` with the encoder's layers under ``remat`` too."""
+        if "memory" not in batch:
+            batch = {**batch, "memory": self.encode(params, batch["frames"], quant,
+                                                    remat=remat)}
+        return super().forward(params, batch, quant, remat=remat)

@@ -143,6 +143,32 @@ def _norm(cfg: ArchConfig, p, x):
     return cm.rmsnorm(p, x) if cfg.norm == "rms" else cm.layernorm(p, x)
 
 
+# Layer checkpointing for the backward, as JAX's ``_maybe_remat``: "none"
+# keeps every activation; "full" recomputes the whole layer; "dots" saves
+# the outputs of the weight matmuls (``aten.mm``/``aten.addmm``: no batch
+# dims, JAX's ``dots_with_no_batch_dims_saveable``) and recomputes the rest
+REMAT = ("none", "full", "dots")
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, remat: Optional[str]):
+    if remat is None or remat == "none":
+        return fn
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {} if remat == "full" else {
+        "context_fn": lambda: create_selective_checkpoint_contexts(_save_dots)}
+    return lambda *a: checkpoint(fn, *a, use_reentrant=False, **kw)
+
+
 def _layer(tree, i: int):
     """Layer ``i`` of a stacked tree: views, so cache writes land in place."""
     return tree_map(lambda a: a[i], tree)
@@ -263,20 +289,23 @@ class LM:
         head_p = params["head"] if "head" in params else params["embed"]
         return cm.lm_head(ctx, head_p, x)
 
-    def forward(self, params: Params, batch: dict,
-                quant: QuantHook = NO_QUANT) -> tuple[torch.Tensor, torch.Tensor]:
-        """Returns (logits, moe aux)."""
+    def forward(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
+                *, remat: Optional[str] = "none") -> tuple[torch.Tensor, torch.Tensor]:
+        """Returns (logits, moe aux). ``remat`` (``REMAT``) checkpoints each
+        layer for the backward: it changes memory, never values."""
         x, ctx = self.begin(params, batch, quant)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for stack in self.stacks:
+            block = _maybe_remat(
+                lambda p, x, stack=stack: self.apply_block(ctx, stack, p, x), remat)
             for layer in range(stack.n):
-                x, a = self.apply_block(ctx, stack, _layer(params[stack.name], layer), x)
+                x, a = block(_layer(params[stack.name], layer), x)
                 aux = aux + a
         return self.finish(params, x, ctx), aux
 
     def loss(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
-             *, aux_weight: float = 0.01) -> torch.Tensor:
-        logits, aux = self.forward(params, batch, quant)
+             *, remat: Optional[str] = "none", aux_weight: float = 0.01) -> torch.Tensor:
+        logits, aux = self.forward(params, batch, quant, remat=remat)
         tokens = batch["tokens"]
         return cm.softmax_xent(logits[:, :-1], tokens[:, 1:]) + aux_weight * aux
 

@@ -41,7 +41,7 @@ from repro_torch.core.fisher import FisherStream, block_grads, model_blocks
 from repro_torch.core.quantizer import QState
 from repro_torch.data import Corpus, CorpusConfig, make_batches
 from repro_torch.deploy import QuantizedArtifact, export
-from repro_torch.interop import params_from_numpy, params_to_numpy
+from repro_torch.interop import flatten_paths, params_from_numpy, params_to_numpy
 from repro_torch.models import get_model
 
 
@@ -249,6 +249,31 @@ def test_quality_ordering_at_jax_settings(trained):
                                      {"embed/table": res.qstates["embed/table"]})
     rtn = evaluate(model, rtn_params, evalb)["loss"]
     assert fp < brecq < rtn, (fp, brecq, rtn)
+
+
+def test_rtn_on_scales_rounds_to_nearest_on_the_calibrated_scales(rand):
+    """The RTN baseline beside BRECQ: every block weight rounded to nearest
+    on its calibrated scale (AdaRound's logits at their RTN start differ
+    from round-to-nearest only at ties, within float error of a half
+    step), the embedding as ``res`` quantized it, ``params`` untouched."""
+    from repro_torch.core import rtn_on_scales
+    from repro_torch.core.quantizer import quantize_dequant
+
+    _, _, _, model, params, cal = rand
+    before = {k: t.clone() for k, t in flatten_paths(params).items()}
+    res = quantize(model, params, cal, _rc(w_bits=2, iters=2))
+    rtn = rtn_on_scales(model, params, res, cal[0])
+    blocks = [p for p in res.qstates if "." in p.split("/")[0]]
+    assert blocks and "embed/table" in res.qstates
+    for p in blocks:
+        st, qcfg = res.qstates[p]
+        got, want = leaf(rtn, p), quantize_dequant(leaf(params, p), st, qcfg)
+        differ = got != want
+        assert float(differ.float().mean()) < 1e-3, p
+        assert float((got - want).abs().max()) <= 1.0001 * float(st.scale.max()), p
+    assert torch.equal(rtn["embed"]["table"], res.params_q["embed"]["table"])
+    for k, t in flatten_paths(params).items():
+        assert torch.equal(t, before[k]), k
 
 
 # ---------------------------------------------------------------------------
