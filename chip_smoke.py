@@ -81,7 +81,15 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              and serve the W2 artifact through the fixed batch (plain path
              replays the tokens); the W4 artifact served through
              ``serve.main --artifact`` (K1 and K2 launched), replayed
-  9. mixed   BRECQ mixed precision on the trained brecq-lm-100m: a W8
+  9. baselines  the paper's PTQ baselines on the same trained
+             brecq-lm-100m at full width and depth, on the calib phase's 32
+             x 128 tokens, at W2 and W4: min-max RTN, OMSE, bias correction,
+             AdaQuant (40 iterations a layer) and LAPQ (84 layers x 6 clip
+             ratios), and RTN W2A4; eval loss, top-1, logits MSE against FP
+             and wall of each on QUALITY_BATCHES held-out batches beside the
+             calib phase's BRECQ and RTN-on-BRECQ's-scales rows; BRECQ W2
+             below min-max RTN W2 and bias correction W2 in eval loss
+ 10. mixed   BRECQ mixed precision on the trained brecq-lm-100m: a W8
              calibration beside the W2 and W4 ones; the sensitivity
              table on 32 sequences (12 blocks x (21 diagonal + 21 pair
              probes), every hardened forward through K5, shadowed); the exact
@@ -95,7 +103,7 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              table timed on K1/K2 (CUDA graph replays between CUDA events):
              the solve within X, the measured dispatch installed and routing
              the served matmuls, the logits replayed by the plain path
- 10. calib_moe  BRECQ W2 calibration of deepseek-moe-16b at full width, cut
+ 11. calib_moe  BRECQ W2 calibration of deepseek-moe-16b at full width, cut
              to 4 layers (the dense layer + 3 MoE layers), 16 x 128 tokens, 50
              iterations a block: every K5 call shadowed (bit for bit), its
              launches on stacks of experts ((64*2048, 1408) views) counted
@@ -103,14 +111,14 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              export, verified load, fixed batch served through
              qmatmul_grouped (M 64 prefill, M 8 decode) and replayed; K5 timed
              at one expert leaf
- 11. family  hold qgemv, qmatmul and kv_decode against their plain
+ 12. family  hold qgemv, qmatmul and kv_decode against their plain
              versions at the attention families' new shapes and time them
              there: qgemv on llama-3.2-vision-90b's MLP (8192 x 28672 and
              back, W4 and W2: off L2), qmatmul over whisper-small's encoder
              (M 12000) and the VLM's cross-attention K/V (M 8192, K 8192),
              kv_decode's paged entry at h2o-danube3-4b's (hd 120, G 4) and
              gemma3-12b's (hd 256, G 2) decode reads, with a window that masks
- 12. whisper whisper-small at full width and depth (12 encoder + 12 decoder
+ 13. whisper whisper-small at full width and depth (12 encoder + 12 decoder
              layers, every cross-attention gate at 1.0), 32 x 128 tokens
              over 1500 frames each: BRECQ W4 calibration (encoder units, the
              boundary, decoder units; every K5 call shadowed), BRECQ closer
@@ -119,24 +127,24 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              + 32 over 1500 frames) served through K2 (the encoder, M 12000)
              and K1 (decode, counted per step), replayed by the plain path;
              redrawn frames move the logits
- 13. vlm     llama-3.2-vision-90b at full width, cut to one group of 5
+ 14. vlm     llama-3.2-vision-90b at full width, cut to one group of 5
              layers (4 self-attention + 1 gated cross-attention): RTN W4 on
              the card, a fixed batch of 8 x 64 + 32 with 1024 patches an
              image, K1 on 8192 x 28672 counted, replayed by the plain path;
              redrawn patches move the logits
- 14. dense   h2o-danube3-4b at full width and depth, gemma3-12b at full
+ 15. dense   h2o-danube3-4b at full width and depth, gemma3-12b at full
              width (one 5 local + 1 global group) and internlm2-20b at full
              width (4 of 48 layers) through the engine: RTN W4, int8 pool, 8
              slots, 16 streams of 64-256 prompt tokens; every kv_decode
              launch on the paged entry (8-byte body at hd 120, 16-byte body
              at hd 256 and at hd 128 with G 6) and shadowed, kernel vs plain
              logits, staggered == sequential
- 15. recurrent  hold qgemv (M 8), qmatmul (M 512) and fakequant against
+ 16. recurrent  hold qgemv (M 8), qmatmul (M 512) and fakequant against
              their plain versions at the recurrent families' new shapes (N 8
              and 16 gate projections, hymba's head of N 32001, K 1600 and
              3200; W4 and W2) and at whisper-small's head (768 x 51865), and
              time them there
- 16. xlstm   xlstm-350m at full width and depth (4 blocks of 5 mLSTM + 1
+ 17. xlstm   xlstm-350m at full width and depth (4 blocks of 5 mLSTM + 1
              sLSTM): BRECQ W4 calibration (32 x 128 tokens, 100 iterations a
              block; every K5 call shadowed), BRECQ closer to FP than RTN on
              held-out logits, export and verified load, a fixed batch (8 x 64
@@ -145,11 +153,11 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              the same positions, through the kernels and on qmm's plain
              backend; the associative scans' and mLSTM chunks'
              share of a prefill (CUDA events)
- 17. hymba   hymba-1.5b at full width: at full depth, RTN W4 served as
+ 18. hymba   hymba-1.5b at full width: at full depth, RTN W4 served as
              xlstm's fixed batch (same checks); cut to 4 layers, BRECQ W4
              calibration, export, verified load and the calibrated artifact
              served the same way
- 18. report  one JSON line of kernels (qmatmul at M 32 and, as added
+ 19. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
              64; the launches of each body on the main paths, for qgemv,
              qmatmul, qmatmul_grouped and kv_decode, whose launches are also
@@ -299,6 +307,9 @@ TRAIN_STEPS = 1000
 TRAIN_ARGS = ["--steps", str(TRAIN_STEPS), "--remat", "none", "--ckpt-every", "100"]
 RESUME_STEPS = (10, 20)
 HELDOUT_FP_MAX = 7.5
+# the PTQ baselines on the trained brecq-lm-100m: AdaQuant's iterations a
+# layer are the paper tables' (benchmarks_torch: RECON_ITERS // 2)
+BASELINE_ADAQUANT_ITERS = 40
 # mixed precision on brecq-lm-100m: W4/W8 calibrations for the sensitivity
 # table, the table on 32 sequences, the per-layer-bits calibration (50
 # iterations a block since the train phase came: 100 before)
@@ -1845,7 +1856,7 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, params,
             "calib_peak_bytes_detail", "unit_retries", "unit_fallbacks",
             "unit_oom_halvings", "unit_cache")
     reuse = {"model": model, "params": params, "res": res, "res4": res4, "calib": calib,
-             "held": held, "prompts": prompts}
+             "held": held, "prompts": prompts, "quality": quality}
     return reuse, {"launches": launches, "expected_launches": expect, "shadow": shadow,
             "stats": {k: st[k] for k in keep}, "device_peak_bytes": peak,
             "wall_s": wall, "logits_mse": mse, "quality": quality,
@@ -1858,6 +1869,84 @@ def phase_calib(torch, fq_kernel, fq_ref, qm_kernel, serve, params,
                       for u in st["units"]],
             "serve": {"launches": served, "logits_max_abs_err": err,
                       "token_agreement": agree, "stats": sst}}
+
+
+def phase_baselines(torch, fq_kernel, reuse: dict) -> dict:
+    """The paper's PTQ baselines (``repro_torch.core.baselines``) on the
+    trained brecq-lm-100m at full width and depth, on the calib phase's
+    calibration set: at W2 and W4 min-max RTN, OMSE (RTN on MSE scales),
+    bias correction, AdaQuant (BASELINE_ADAQUANT_ITERS a layer) and LAPQ
+    (one round over the default ratios), and RTN W2A4 (min-max activation
+    scales); each row's held-out eval loss, top-1, logits MSE against FP
+    and wall, beside the calib phase's BRECQ and ``rtn_on_scales`` rows.
+    Gates: every eval loss finite; BRECQ W2 below min-max RTN W2 and bias
+    correction W2 in eval loss (the paper's Table 2 at its robust end)."""
+    from repro_torch.core.baselines import (quantize_adaquant, quantize_bias_correction,
+                                            quantize_lapq, quantize_rtn)
+    from repro_torch.core.evaluate import evaluate
+    from repro_torch.core.hooks import ServeHook
+    from repro_torch.models.common import NO_QUANT
+
+    t_phase = time.perf_counter()
+    model, params, calib, quality = (reuse[k] for k in ("model", "params", "calib",
+                                                        "quality"))
+    qbatches = _quality_batches(torch, model.cfg)
+    with torch.no_grad():
+        fps = [model.forward(params, b)[0] for b in qbatches]
+    methods = {
+        "rtn_minmax": lambda b: quantize_rtn(model, params, calib, b, scale_method="minmax"),
+        "omse": lambda b: quantize_rtn(model, params, calib, b, scale_method="mse"),
+        "biascorr": lambda b: quantize_bias_correction(model, params, calib, b),
+        "adaquant": lambda b: quantize_adaquant(model, params, calib, b,
+                                                iters=BASELINE_ADAQUANT_ITERS),
+        "lapq": lambda b: quantize_lapq(model, params, calib, b),
+    }
+    runs = [(f"{m}_w{b}", fn, b, None) for b in (2, 4) for m, fn in methods.items()]
+    runs.append(("rtn_w2a4", lambda b: quantize_rtn(model, params, calib, b, a_bits=4),
+                 2, 4))
+    rows = {}
+    fq_kernel.reset_launches()
+    for name, fn, bits, a_bits in runs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pq, scales = fn(bits)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        hook = ServeHook(scales, a_bits) if a_bits else NO_QUANT
+        with torch.no_grad():
+            mse = sum(float(torch.mean((model.forward(pq, b, hook)[0] - fp) ** 2))
+                      for fp, b in zip(fps, qbatches)) / len(qbatches)
+        rows[name] = {**evaluate(model, pq, qbatches, scales or None, a_bits),
+                      "logits_mse": mse, "wall_s": wall}
+        print(f"[baselines] {name}: eval loss {rows[name]['loss']:.4f}, top1 "
+              f"{rows[name]['top1']:.4f}, logits MSE vs FP {mse:.4e}, wall {wall:.2f}s")
+        del pq
+    del fps
+    launches = dict(fq_kernel.LAUNCHES)
+    fp = quality["fp"]
+    beside = {"fp": fp, **{f"{m}_w{b}": quality[f"{k}_w{b}"] for b in (2, 4)
+                           for m, k in (("brecq", "brecq"), ("rtn_on_scales", "rtn"))}}
+    print(f"[baselines] held-out {QUALITY_BATCHES}x{HELDOUT_SEQS}x{CALIB_LEN} tokens "
+          f"(calib phase's rows beside): name, eval loss, minus FP, top1, logits MSE")
+    for name, r in {**beside, **rows}.items():
+        print(f"[baselines]   {name:<16} {r['loss']:.4f} {r['loss'] - fp['loss']:+.4f} "
+              f"{r['top1']:.4f} {r.get('logits_mse', 0.0):.4e}")
+    bad = [n for n, r in rows.items() if not math.isfinite(r["loss"])]
+    if bad:
+        fail(f"baselines with a non-finite eval loss: {bad}")
+    brecq2 = quality["brecq_w2"]["loss"]
+    for name in ("rtn_minmax_w2", "biascorr_w2"):
+        if brecq2 >= rows[name]["loss"]:
+            fail(f"BRECQ W2's eval loss {brecq2} is not below {name}'s "
+                 f"{rows[name]['loss']}")
+    omse_gap = rows["omse_w2"]["loss"] - quality["rtn_w2"]["loss"]
+    print(f"[baselines] BRECQ W2 {brecq2:.4f} below min-max RTN W2 by "
+          f"{rows['rtn_minmax_w2']['loss'] - brecq2:.4f} and bias correction W2 by "
+          f"{rows['biascorr_w2']['loss'] - brecq2:.4f} nats (gated); OMSE W2 minus "
+          f"rtn_on_scales W2 {omse_gap:+.6f} nats; fakequant launches {launches}; "
+          f"phase wall {time.perf_counter() - t_phase:.2f}s")
+    return {"rows": rows, "beside": beside, "omse_minus_rtn_on_scales_w2": omse_gap,
+            "launches": launches, "phase_wall_s": time.perf_counter() - t_phase}
 
 
 def _serve_trained_w4(torch, model, res4, qm_kernel, serve, workdir: Path) -> dict:
@@ -3445,6 +3534,7 @@ def main(argv=None) -> None:
         trained, train_rec = phase_train(torch, Path(tmp))
         reuse, calib = phase_calib(torch, fq_kernel, fq_ref, kernel, serve, trained,
                                    Path(tmp))
+        baselines = phase_baselines(torch, fq_kernel, reuse)
         del trained
         mixed = phase_mixed(torch, fq_kernel, fq_ref, kernel, serve, reuse, Path(tmp))
         del reuse
@@ -3483,7 +3573,8 @@ def main(argv=None) -> None:
              "serve": served, "engine": engine, "engine_long": long_engine,
              "moe_timings": moe_rows,
              "moe": moe, "fakequant_timings": fq_rows, "calib": calib,
-             "train": train_rec, "mixed": mixed, "calib_moe": calib_moe,
+             "train": train_rec, "baselines": baselines, "mixed": mixed,
+             "calib_moe": calib_moe,
              "fakequant_experts": fq_experts,
              "family": family, "recurrent": recurrent,
              "kernels": line["kernels"],

@@ -11,17 +11,17 @@ from its checkpoints) -> block-reconstruction PTQ
 --artifact`` serves. Runs on the GPU; ``--device cpu`` with ``--small``
 (the reduced config) runs on the host.
 
-Its RTN line is not the JAX example's ``core/baselines.py::quantize_rtn``,
-which the port does not have yet (ROADMAP item 15b), but
-``repro_torch.core.rtn_on_scales``: every block weight rounded to nearest
-on the scales BRECQ calibrated, the embedding and head as BRECQ quantized
-them, which isolates what the learned rounding buys.
+Beside the JAX example's RTN baseline (``core.baselines.quantize_rtn``,
+MSE-searched scales) it prints ``repro_torch.core.rtn_on_scales``: every
+block weight rounded to nearest on the scales BRECQ calibrated, which
+isolates what the learned rounding buys.
 """
 import argparse
 import time
 from pathlib import Path
 
 from repro_torch.core import ReconConfig, quantize, rtn_on_scales
+from repro_torch.core.baselines import quantize_rtn
 from repro_torch.core.evaluate import evaluate
 from repro_torch.data import Corpus, CorpusConfig, make_batches
 from repro_torch.deploy import export, tree_bytes
@@ -60,12 +60,14 @@ def main():
     evalb = make_batches(corpus, 4, 8, args.seq, seed=2, start_step=60_000)
 
     fp = evaluate(model, params, evalb)
+    rtn = evaluate(model, quantize_rtn(model, params, calib, args.w_bits)[0], evalb)
     t0 = time.time()
     res = quantize(model, params, calib,
                    ReconConfig(w_bits=args.w_bits, iters=args.iters))
     brecq = evaluate(model, res.params_q, evalb)
-    rtn = evaluate(model, rtn_on_scales(model, params, res, calib[0]), evalb)
+    rtn_own = evaluate(model, rtn_on_scales(model, params, res, calib[0]), evalb)
     print(f"\nFP ppl {fp['ppl']:.2f} | RTN-W{args.w_bits} ppl {rtn['ppl']:.2f} "
+          f"| RTN on BRECQ's scales ppl {rtn_own['ppl']:.2f} "
           f"| BRECQ-W{args.w_bits} ppl {brecq['ppl']:.2f} "
           f"({time.time()-t0:.0f}s calibration)")
 

@@ -45,7 +45,7 @@ from ..optim import adam
 from . import adaround, calib_loop, lsq
 from .adaround import BetaSchedule
 from .fisher import FisherStream
-from .hooks import RTNHook
+from .hooks import LayerCaptureHook, RTNHook
 from .journal import CalibJournal, CalibrationInterrupted
 from .quantizer import QConfig, QState, init_qstate, quantize_dequant
 
@@ -806,6 +806,14 @@ def bake(model, params, qstates, v_all, embed_head) -> Params:
     for path, (st, cfg) in embed_head.items():
         set_leaf(path, lambda w, st=st, cfg=cfg: quantize_dequant(w, st, cfg))
     return params_q
+
+
+def _cap(walker, params, bi, qstates, v_done, s_done, rc, path, x, calib, mem):
+    """The input of linear ``path`` in block ``bi``: the block runs with the
+    paths of ``v_done`` hardened and LSQ on the scales of ``s_done``."""
+    hook = LayerCaptureHook(qstates, v_done, path, s_done, rc.a_bits)
+    _apply_unit(walker, params, [bi], hook, x, calib, mem)
+    return hook.captured
 
 
 def rtn_on_scales(model, params, res: PTQResult, batch: dict) -> Params:

@@ -241,8 +241,11 @@ def test_port_imports_no_jax_and_no_reference_package():
 def test_port_sources_have_no_reference_imports():
     import re
 
-    pat = re.compile(r"^\s*(import|from)\s+(jax|repro)\b")
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    pat = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)\b")
+    files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+             + sorted((ROOT / "benchmarks_torch").glob("*.py"))
+             + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
+    assert len(files) > 60 and ROOT / "benchmarks_torch" / "run.py" in files
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
     assert not hits
