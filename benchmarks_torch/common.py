@@ -128,3 +128,17 @@ def emit(rows: list[dict], table: str):
         print(f"{table}/{r['name']},{r.get('us_per_call', 0):.0f},{r['derived']}")
     ART.mkdir(parents=True, exist_ok=True)
     (ART / f"{table}.json").write_text(json.dumps(rows, indent=1, default=float))
+
+
+def device_name(device: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi --query-gpu=
+    name,power.limit --format=csv,noheader`` prints them, or ``"cpu"``."""
+    if device.type != "cuda":
+        return "cpu"
+    import subprocess
+
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip()

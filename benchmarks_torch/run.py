@@ -4,8 +4,12 @@ Prints ``name,us_per_call,derived`` CSV rows per table (scaffold
 contract) and saves JSON artifacts under ``artifacts/bench_torch/``;
 after each table, the launches of the hand-written kernels it made
 (``fakequant`` in the hardened forwards and ``bake``; ``qgemv`` and
-``qmatmul`` in fig2's measured cost table). Runs on the card; ``--device
-cpu`` runs every table on the host's plain paths.
+``qmatmul`` in table 6's serving and fig2's measured cost table). Runs on
+the card; ``--device cpu`` runs every table on the host's plain paths.
+
+As the reference's ``run.py``, it runs neither table 7 nor table 8: they
+are ``python -m benchmarks_torch.table7_serve_mt`` and ``python -m
+benchmarks_torch.table8_budget``.
 
     PYTHONPATH=src python -m benchmarks_torch.run [TABLE ...] [--device cpu]
 """
@@ -25,7 +29,8 @@ def _kernels() -> tuple:
 
 def main(argv=None) -> None:
     from . import (fig2_mixed_precision, table1_granularity, table2_weight_only,
-                   table3_full_quant, table4_cost, table5_calib_speed)
+                   table3_full_quant, table4_cost, table5_calib_speed,
+                   table6_deploy)
     from .common import device_arg
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -39,12 +44,13 @@ def main(argv=None) -> None:
         ("table3_full_quant", table3_full_quant.main),
         ("table4_cost", table4_cost.main),
         ("table5_calib_speed", table5_calib_speed.main),
+        ("table6_deploy", table6_deploy.main),
         ("fig2_mixed_precision", fig2_mixed_precision.main),
     ]
     only = argv or None
     if not only or "roofline_table" in only:
         print("\n===== roofline_table: no counterpart in the port yet (it reads "
-              "launch/dryrun.py's artifacts; ROADMAP 15c/15d) =====")
+              "launch/dryrun.py's artifacts; ROADMAP 15d) =====")
     for name, fn in tables:
         if only and name not in only:
             continue

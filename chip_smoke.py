@@ -8,8 +8,9 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              one's ptxas registers and spills
   2. parity  hold the ``qgemv`` and ``qmatmul`` kernels against their plain
              PyTorch versions on the card over the serving shapes of
-             brecq-lm-100m (decode M 1 and 8; prefill M 32, the engine's
-             chunk, 64 and 512; ragged M and N), for 2/4/8-bit codes,
+             brecq-lm-100m (decode M 1 and 8; qmatmul at M 8, the decode
+             tier off, and 16, the 16-slot engine's decode, M 32, the
+             engine's chunk, 64 and 512; ragged M and N), for 2/4/8-bit codes,
              per-channel and group-128 scales; time kernel, plain version,
              library yardstick (torch.matmul on the pre-dequantized
              weight) and the bound at the slice shapes (for the
@@ -103,7 +104,23 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              table timed on K1/K2 (CUDA graph replays between CUDA events):
              the solve within X, the measured dispatch installed and routing
              the served matmuls, the logits replayed by the plain path
- 11. calib_moe  BRECQ W2 calibration of deepseek-moe-16b at full width, cut
+ 11. deploy  the repo's deployment tables on brecq-lm-100m at full width and
+             depth through ``benchmarks_torch``: table 6 (fixed batch 8 x 64
+             + 32, FP against packed W4 with the decode tier on and off),
+             table 7 (64 staggered streams through the engine, 16 slots,
+             int8 and fp16 pools, and a pool cut to 35% under worst-case and
+             optimistic admission) and table 8 (the budget frontier: the
+             exact solver against unified W2/W4/W8 and the GA at 5 byte and 3
+             latency budgets, the latter on K1/K2 timed from CUDA graphs);
+             the reference's ``check_serve_bench.py`` and
+             ``check_budget_bench.py`` on the three files; table 7's
+             scheduler counters equal to the reference's and its fp16/int8
+             KV bytes 1.939; K1, K2 (M 16 on the engine's decode) and K4
+             counted; table 7's first 16 streams replayed with logits, int8
+             pool through the kernels against the plain path and fp16 pool
+             through the kernels against a float32 pool on the plain path;
+             the packed decode step beside its roofline bound
+ 12. calib_moe  BRECQ W2 calibration of deepseek-moe-16b at full width, cut
              to 4 layers (the dense layer + 3 MoE layers), 16 x 128 tokens, 50
              iterations a block: every K5 call shadowed (bit for bit), its
              launches on stacks of experts ((64*2048, 1408) views) counted
@@ -111,14 +128,14 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              export, verified load, fixed batch served through
              qmatmul_grouped (M 64 prefill, M 8 decode) and replayed; K5 timed
              at one expert leaf
- 12. family  hold qgemv, qmatmul and kv_decode against their plain
+ 13. family  hold qgemv, qmatmul and kv_decode against their plain
              versions at the attention families' new shapes and time them
              there: qgemv on llama-3.2-vision-90b's MLP (8192 x 28672 and
              back, W4 and W2: off L2), qmatmul over whisper-small's encoder
              (M 12000) and the VLM's cross-attention K/V (M 8192, K 8192),
              kv_decode's paged entry at h2o-danube3-4b's (hd 120, G 4) and
              gemma3-12b's (hd 256, G 2) decode reads, with a window that masks
- 13. whisper whisper-small at full width and depth (12 encoder + 12 decoder
+ 14. whisper whisper-small at full width and depth (12 encoder + 12 decoder
              layers, every cross-attention gate at 1.0), 32 x 128 tokens
              over 1500 frames each: BRECQ W4 calibration (encoder units, the
              boundary, decoder units; every K5 call shadowed), BRECQ closer
@@ -127,24 +144,24 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              + 32 over 1500 frames) served through K2 (the encoder, M 12000)
              and K1 (decode, counted per step), replayed by the plain path;
              redrawn frames move the logits
- 14. vlm     llama-3.2-vision-90b at full width, cut to one group of 5
+ 15. vlm     llama-3.2-vision-90b at full width, cut to one group of 5
              layers (4 self-attention + 1 gated cross-attention): RTN W4 on
              the card, a fixed batch of 8 x 64 + 32 with 1024 patches an
              image, K1 on 8192 x 28672 counted, replayed by the plain path;
              redrawn patches move the logits
- 15. dense   h2o-danube3-4b at full width and depth, gemma3-12b at full
+ 16. dense   h2o-danube3-4b at full width and depth, gemma3-12b at full
              width (one 5 local + 1 global group) and internlm2-20b at full
              width (4 of 48 layers) through the engine: RTN W4, int8 pool, 8
              slots, 16 streams of 64-256 prompt tokens; every kv_decode
              launch on the paged entry (8-byte body at hd 120, 16-byte body
              at hd 256 and at hd 128 with G 6) and shadowed, kernel vs plain
              logits, staggered == sequential
- 16. recurrent  hold qgemv (M 8), qmatmul (M 512) and fakequant against
+ 17. recurrent  hold qgemv (M 8), qmatmul (M 512) and fakequant against
              their plain versions at the recurrent families' new shapes (N 8
              and 16 gate projections, hymba's head of N 32001, K 1600 and
              3200; W4 and W2) and at whisper-small's head (768 x 51865), and
              time them there
- 17. xlstm   xlstm-350m at full width and depth (4 blocks of 5 mLSTM + 1
+ 18. xlstm   xlstm-350m at full width and depth (4 blocks of 5 mLSTM + 1
              sLSTM): BRECQ W4 calibration (32 x 128 tokens, 100 iterations a
              block; every K5 call shadowed), BRECQ closer to FP than RTN on
              held-out logits, export and verified load, a fixed batch (8 x 64
@@ -153,16 +170,17 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              the same positions, through the kernels and on qmm's plain
              backend; the associative scans' and mLSTM chunks'
              share of a prefill (CUDA events)
- 18. hymba   hymba-1.5b at full width: at full depth, RTN W4 served as
+ 19. hymba   hymba-1.5b at full width: at full depth, RTN W4 served as
              xlstm's fixed batch (same checks); cut to 4 layers, BRECQ W4
              calibration, export, verified load and the calibrated artifact
              served the same way
- 19. report  one JSON line of kernels (qmatmul at M 32 and, as added
+ 20. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
              64; the launches of each body on the main paths, for qgemv,
              qmatmul, qmatmul_grouped and kv_decode, whose launches are also
              counted by entry and by split; the launches of the mixed,
-             calib_moe, the attention families', the recurrent families'
+             deploy (per table), calib_moe, the attention families', the
+             recurrent families'
              and the trained model's paths, and the times at the families'
              shapes), the run's wall,
              the card's name and power limit, and the final
@@ -192,18 +210,18 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, f32
-# outside the tensor cores (kv_decode, fakequant and the CUDA-core bodies
-# kept for short scale groups), and dense TF32 and bf16 on the tensor cores
-# (the short tile in two TF32 passes; the wide tile and the decode body of
-# qgemv and qmatmul_grouped at M <= 8 in three bf16 passes).
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOP_S = 67e12
-PEAK_TF32_FLOP_S = 495e12
-PEAK_BF16_FLOP_S = 989e12
+# Published H100 SXM peaks (NVIDIA data sheet), from the port's roofline
+# (repro_torch.analysis.roofline): HBM3 bandwidth, f32 outside the tensor
+# cores (kv_decode, fakequant and the CUDA-core bodies kept for short scale
+# groups), and dense TF32 and bf16 on the tensor cores (the short tile in
+# two TF32 passes; the wide tile and the decode body of qgemv and
+# qmatmul_grouped at M <= 8 in three bf16 passes). The roofline module
+# imports without torch; with no port beside this script, the import fails.
+sys.path.insert(0, str(SRC))
+from repro_torch.analysis.roofline import HBM_BW, PEAK_F32, PEAK_FLOPS, PEAK_TF32  # noqa: E402
+
 # operations per multiply-add and peak rate of each body's arithmetic
-ARITH = {"f32": (2, PEAK_F32_FLOP_S), "tf32x2": (4, PEAK_TF32_FLOP_S),
-         "bf16x3": (6, PEAK_BF16_FLOP_S)}
+ARITH = {"f32": (2, PEAK_F32), "tf32x2": (4, PEAK_TF32), "bf16x3": (6, PEAK_FLOPS)}
 
 # (K, N) of one brecq-lm-100m layer's packed matmuls, with how many of the
 # layer's 7 matmuls have that shape: wq/wk/wv/wo, w_gate/w_up, w_down.
@@ -211,8 +229,10 @@ SLICE_SHAPES = {(768, 768): 4, (768, 2048): 2, (2048, 768): 1}
 RAGGED_N = 200
 L2_FLUSH_BYTES = 100e6  # weight copies per timing: twice the 50 MB L2
 DECODE_M = (1, 8)
-# the engine's prefill chunk, the wide tile's first M, fixed batch, ragged M
-PREFILL_M = (32, 64, 512, 520)
+# the decode tier switched off (M 8), the 16-slot engine's decode (M 16,
+# a half-filled short tile), the engine's prefill chunk, the wide tile's
+# first M, fixed batch, ragged M
+PREFILL_M = (8, 16, 32, 64, 512, 520)
 TIMED_M = (8, 32, 512)  # decode, the engine's prefill chunk, fixed-batch prefill
 
 # kv_decode parity cases (B, H, K, hd, S, window, kpos holes, empty row):
@@ -395,6 +415,33 @@ HEAD_SHAPES = [("whisper_head", 768, 51865)]
 # to INTERNLM_LAYERS (10.8 GB, 4.5 of it the untied 92,544-word table and head)
 INTERNLM_LAYERS = 4
 
+# The deploy phase: the repo's deployment tables 6-8 (benchmarks_torch) on
+# brecq-lm-100m at full width and depth. Table 7's scheduler counters at
+# the reference's defaults (64 streams, 16 slots, prompt 48, gen 48, chunk
+# 32, page 16, seed 0, pool fraction 0.35) as the JAX package's tracked
+# BENCH_serve_mt.json holds them (its reduced config: they depend on
+# lengths, pages and slots only, not on widths): decode ticks, tokens,
+# peak pages, preemptions, replayed prefill chunks, mean slot occupancy.
+T7_KEYS = ("decode_ticks", "tokens_generated", "peak_pages_in_use", "preemptions",
+           "replay_prefill_chunks", "mean_slot_occupancy")
+T7_COUNTERS = {"int8": (197, 2418, 70, 0, 0, 0.747),
+               "fp16": (197, 2418, 70, 0, 0, 0.747),
+               "pressure.none": (432, 2418, 28, 0, 0, 0.341),
+               "pressure.prompt": (366, 2418, 33, 18, 32, 0.402)}
+# fp16 over int8 KV bytes a page at full width: 12 layers x 16 slots x 12
+# heads x 64 x 2 (K, V) x 2 bytes against 12 x 16 x 12 x (64 x 2 codes + 2
+# x 2 f16 scale bytes)
+T7_KV_RATIO = round(589_824 / 304_128, 3)
+# table 7's run replayed for its values: its first T7_REPLAY_STREAMS streams
+# (as many as its slots, so every decode tick is a 16-row K2 call) on its
+# own artifact, int8 pool through the kernels against the plain path, and
+# fp16 pool through the kernels against a float32 pool on the plain path
+T7_REPLAY_STREAMS = 16
+# the reference checkers' measured floors, pinned for a CPU runner; printed
+# beside the card's ratios and passed to the checkers as 0 (on the card the
+# decode step follows the host, and both passes run the same host code)
+T6_MIN_TIER_RATIO, T8_MIN_TOK_RATIO = 0.85, 0.5
+
 
 def tolerance(ref) -> float:
     """Kernel vs plain version: f32 sums in another order."""
@@ -415,8 +462,8 @@ def bound(m: int, k: int, n: int, bits: int, g: int,
     on CUDA cores). Returns (ms, "bytes" or "operations", the f32 CUDA-core
     bound in ms, which earlier rows used)."""
     nbytes = m * k * 4 + k * n * bits // 8 + g * n * 4 + m * n * 4
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_f32 = max(t_bytes, 2 * m * k * n / PEAK_F32_FLOP_S * 1e3)
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_f32 = max(t_bytes, 2 * m * k * n / PEAK_F32 * 1e3)
     per, peak = ARITH[arith]
     t_ops = per * m * k * n / peak * 1e3
     return ((t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")) + (t_f32,)
@@ -603,8 +650,8 @@ def _kv_bound(q, K, valid, slot, index_bytes, scale_bytes) -> tuple[float, str]:
     nbytes = (2 * B * H * hd * 4 + B * 4 + index_bytes
               + (k_slots + v_slots) * K * (hd + scale_bytes))
     ops = H * hd * (4 * int(valid.sum()) + 2 * int(empty.sum()) * valid.shape[1])
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = ops / PEAK_F32_FLOP_S * 1e3
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_ops = ops / PEAK_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -1456,8 +1503,8 @@ def fq_bound(k: int, n: int, s_rows: int) -> tuple[float, str]:
     read once, the (s_rows, n) scale read once, the output written once,
     against 7 f32 operations per weight (divide, floor, compare, add, two
     clip compares, multiply)."""
-    t_bytes = 4 * (3 * k * n + s_rows * n) / PEAK_BYTES_S * 1e3
-    t_ops = 7 * k * n / PEAK_F32_FLOP_S * 1e3
+    t_bytes = 4 * (3 * k * n + s_rows * n) / HBM_BW * 1e3
+    t_ops = 7 * k * n / PEAK_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -2403,6 +2450,211 @@ def phase_mixed(torch, fq_kernel, fq_ref, qm_kernel, serve, reuse: dict,
 
 
 # ---------------------------------------------------------------------------
+# deploy: the repo's deployment tables 6-8 at full width
+# ---------------------------------------------------------------------------
+
+
+def _shape_counts(log: dict) -> dict:
+    """``_shapes_logged``'s (kernel, M, K, N) counts as JSON keys."""
+    return {f"{k}_M{m}_{kk}x{n}": v for (k, m, kk, n), v in sorted(log.items())}
+
+
+def _checker(script: str, *args: str) -> str:
+    """Run one of the reference's JSON guards (scripts/check_*_bench.py);
+    fails the phase on a non-zero exit."""
+    res = subprocess.run([sys.executable, str(ROOT / "scripts" / script), *args],
+                         capture_output=True, text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"{script} {' '.join(args)} exited {res.returncode}: "
+             f"{res.stdout.strip()} {res.stderr.strip()}")
+    return res.stdout.strip()
+
+
+def _t7_replay(torch, qm_kernel, c: dict) -> dict:
+    """Replay the first ``T7_REPLAY_STREAMS`` streams of table 7's run
+    (config ``c``: the same seed, params, RTN W4 artifact, draws and
+    engine) with logits recorded: the int8 pool through the kernels against
+    the plain path, and the fp16 pool through the kernels against a float32
+    pool on the plain path. Each pair within ENGINE_LOGIT_TOL of max
+    |logit| on the shared token history (``_agree``), over at least
+    MIN_STEPS_SHARED of the steps; the kernel runs launch qmatmul at M 16."""
+    from benchmarks_torch import table7_serve_mt as t7
+    from repro_torch.deploy import rtn_artifact
+    from repro_torch.models import get_model
+    from repro_torch.serve_engine import ServeEngine
+
+    cfg, model = get_model(c["arch"], reduced=c["reduced"])
+    params = model.init(torch.Generator(device="cuda").manual_seed(c["seed"]))
+    art = rtn_artifact(params, 4, cfg=cfg)
+    n = T7_REPLAY_STREAMS
+    draws = [d[:n] for d in t7.draw_streams(cfg.vocab, streams=c["streams"],
+                                            prompt=c["prompt_len"], gen=c["gen_len"],
+                                            seed=c["seed"])]
+    log: dict = {}
+
+    def run(kv_dtype, backend):
+        hook = copy.copy(art.hook())  # NO_QUANT is a shared singleton
+        hook.packed_backend = backend
+        eng = ServeEngine(model, art.params, t7.engine_config(
+            slots=c["slots"], page_size=c["page_size"], prompt=c["prompt_len"],
+            gen=c["gen_len"], chunk=c["prefill_chunk"], kv_dtype=kv_dtype,
+            backend=backend, record_logits=True), quant=hook)
+        with _shapes_logged(qm_kernel, log):
+            t7.drive(eng, *draws)
+        eng.assert_no_leaks()
+        return eng
+
+    out = {"streams": n,
+           "int8": _agree(run("int8", "cuda"), run("int8", "torch")),
+           "fp16": _agree(run("float16", "cuda"), run("float32", "torch"))}
+    out["qmatmul_M16"] = sum(v for (k, m, _, _), v in log.items()
+                             if k == "qmatmul" and m == 16)
+    for what, r in (("int8 pool, kernels vs plain", out["int8"]),
+                    ("fp16 pool through the kernels vs float32 pool plain", out["fp16"])):
+        print(f"[deploy] table 7 replay, {n} streams: {_say(what, r)}")
+        limit = ENGINE_LOGIT_TOL * r["max_abs"]
+        if not r["max_abs_err"] <= limit:
+            fail(f"table 7 replay, {what}: logits {r['max_abs_err']:.3e} > {limit:.3e}")
+        if r["steps"] < MIN_STEPS_SHARED * r["of"]:
+            fail(f"table 7 replay, {what}: only {r['steps']} of {r['of']} steps on "
+                 f"a shared token history")
+    if out["qmatmul_M16"] == 0:
+        fail(f"table 7 replay launched no qmatmul at M 16: {log}")
+    return out
+
+
+def phase_deploy(torch, kernels, workdir: Path) -> dict:
+    """The repo's deployment tables on brecq-lm-100m at full width and depth,
+    params from seed 0, through ``benchmarks_torch``: table 6's
+    ``serve_bench(reduced=False)`` (FP, packed W4, packed W4 with the decode
+    tier off), table 7's ``bench(reduced=False)`` (64 streams through the
+    engine on int8 and fp16 pools, and the pressure pair) and table 8's
+    ``main(["--full"])`` (the budget frontier). Each table's launches are
+    counted from 0; the reference's guards read the three files; table 7's
+    scheduler counters equal the reference's and its KV ratio is exact;
+    its first streams, replayed, agree with the plain path
+    (``_t7_replay``); table 6 shows the decode tier on, then off, then on
+    again."""
+    from benchmarks_torch import table6_deploy, table7_serve_mt, table8_budget
+    from repro_torch.analysis.roofline import ideal_serve_bytes
+    from repro_torch.configs import ShapeSpec
+    from repro_torch.kernels.qmatmul import ops as qmm_ops
+    from repro_torch.models import get_config
+
+    qm_kernel = kernels["qmatmul"]
+    t_phase = time.perf_counter()
+    paths = {k: workdir / f"BENCH_{k}.json" for k in ("serve", "serve_mt", "budget")}
+    out: dict = {"launches": {}, "bodies": {}, "shapes": {}, "wall_s": {}}
+
+    def table(tag, fn):
+        log: dict = {}
+        t0 = time.perf_counter()
+        with _shapes_logged(qm_kernel, log):
+            doc, launches, bodies = _counted(kernels, fn)
+        out["wall_s"][tag] = time.perf_counter() - t0
+        out["launches"][tag], out["bodies"][tag] = launches, bodies
+        out["shapes"][tag] = _shape_counts(log)
+        print(f"[deploy] {tag} in {out['wall_s'][tag]:.2f}s; kernel launches {launches}; "
+              f"packed matmuls by (kernel, M, K x N) {out['shapes'][tag]}")
+        return doc, launches
+
+    # table 6: fixed-batch serving, FP vs packed W4, the decode tier on and off
+    t6, l6 = table("t6", lambda: table6_deploy.serve_bench(
+        reduced=False, device="cuda", out=paths["serve"]))
+    if not qmm_ops.decode_tier_enabled():
+        fail("the decode tier stayed off after table 6's tier-off pass")
+    tiers_on = t6["packed_w4"]["qmm_tiers"]
+    tiers_off = t6["packed_w4_no_decode_tier"]["qmm_tiers"]
+    if not (tiers_on["decode"] > 0 and tiers_off["decode"] == 0):
+        fail(f"table 6's tiers: packed {tiers_on}, tier off {tiers_off}: expected "
+             f"decode > 0 with the tier on and 0 with it off")
+    if not (l6["qgemv"] > 0 and l6["qmatmul"] > 0):
+        fail(f"table 6 launched qgemv {l6['qgemv']} and qmatmul {l6['qmatmul']} times")
+    cfg = get_config("brecq_lm_100m")
+    b, p, g = (t6["config"][k] for k in ("batch", "prompt_len", "gen_len"))
+    step_bound_ms = ideal_serve_bytes(cfg, ShapeSpec("t6", p + g, b, "decode"), 1,
+                                      w_bits=4) / HBM_BW * 1e3
+    rows6 = {k: t6[k] for k in ("fp", "packed_w4", "packed_w4_no_decode_tier")}
+    step_ms = {k: 1e3 * b / r["decode_tok_s"] for k, r in rows6.items()}
+    out["t6"] = {"doc": t6, "step_ms": step_ms, "step_bound_ms": step_bound_ms}
+    print("[deploy] table 6 (full width, batch 8, prompt 64, gen 32): decode / prefill "
+          "tok/s " + "; ".join(f"{k} {r['decode_tok_s']} / {r['prefill_tok_s']}"
+                                for k, r in rows6.items())
+          + f"; packed/fp decode {t6['decode_ratio_packed_vs_fp']} (prediction "
+          f"0.8-1.25), tier/tier-off {t6['decode_ratio_tier_vs_legacy']} (prediction "
+          f"0.8-1.25; the reference's CPU floor {T6_MIN_TIER_RATIO}, not gated); packed "
+          f"decode step {step_ms['packed_w4']:.3f} ms against its bound "
+          f"{step_bound_ms * 1e3:.2f} us (W4 weights + the cache once, "
+          f"ideal_serve_bytes / HBM_BW)")
+
+    # table 7: the engine under 64 staggered streams, int8 and fp16 pools, pressure
+    t7, l7 = table("t7", lambda: table7_serve_mt.bench(
+        reduced=False, device="cuda", out=paths["serve_mt"]))
+    runs7 = {"int8": t7["int8"], "fp16": t7["fp16"],
+             "pressure.none": t7["pressure"]["none"],
+             "pressure.prompt": t7["pressure"]["prompt"]}
+    for mode, want in T7_COUNTERS.items():
+        got = tuple(runs7[mode][k] for k in T7_KEYS)
+        if got != want:
+            fail(f"table 7 {mode}: {dict(zip(T7_KEYS, got))} != the reference's "
+                 f"{dict(zip(T7_KEYS, want))}")
+    if t7["kv_bytes_ratio_fp16_over_int8"] != T7_KV_RATIO:
+        fail(f"table 7's fp16/int8 KV bytes {t7['kv_bytes_ratio_fp16_over_int8']} "
+             f"!= {T7_KV_RATIO}")
+    m16 = sum(v for k, v in out["shapes"]["t7"].items() if k.startswith("qmatmul_M16_"))
+    if not (m16 > 0 and l7["kv_decode"] > 0
+            and out["bodies"]["t7"]["kv_decode_entry"]["paged"] == l7["kv_decode"]):
+        fail(f"table 7 launched qmatmul at M 16 {m16} times and kv_decode "
+             f"{l7['kv_decode']} times ({out['bodies']['t7']['kv_decode_entry']})")
+    tok_ratio = t7["int8"]["sustained_tok_s"] / max(t7["fp16"]["sustained_tok_s"], 1e-9)
+    t0 = time.perf_counter()
+    replay = _t7_replay(torch, qm_kernel, t7["config"])
+    out["wall_s"]["t7_replay"] = time.perf_counter() - t0
+    out["t7"] = {"doc": t7, "int8_over_fp16_tok_s": tok_ratio, "replay": replay}
+    print(f"[deploy] table 7 (full width, 64 streams, 16 slots): sustained tok/s int8 "
+          f"{t7['int8']['sustained_tok_s']}, fp16 {t7['fp16']['sustained_tok_s']} "
+          f"(int8/fp16 {tok_ratio:.3f}, prediction 0.8-1.25); pressure none "
+          f"{t7['pressure']['none']['sustained_tok_s']}, prompt "
+          f"{t7['pressure']['prompt']['sustained_tok_s']}; counters == the reference's; "
+          f"KV bytes fp16/int8 {t7['kv_bytes_ratio_fp16_over_int8']} "
+          f"({t7['int8']['bytes_per_page']} / {t7['fp16']['bytes_per_page']} B a page)")
+
+    # table 8: the budget frontier, the exact solver against unified precision and the GA
+    t8, l8 = table("t8", lambda: table8_budget.main(
+        ["--full", "--device", "cuda", "--out", str(paths["budget"])]))
+    if not (l8["qgemv"] > 0 and l8["qmatmul"] > 0):
+        fail(f"table 8 launched qgemv {l8['qgemv']} and qmatmul {l8['qmatmul']} times")
+    slowest = min(u["decode_tok_s"] for u in t8["unified"])
+    tok8 = min(r["solver"]["decode_tok_s"] for r in t8["rows"]) / slowest
+    ga_ok = all(r["genetic"]["fitness"] >= r["solver"]["predicted_loss"]
+                for r in t8["rows"] + t8["latency_rows"])
+    out["t8"] = {"doc": t8, "min_tok_ratio": tok8}
+    print("[deploy] table 8 (full width): unified " + "; ".join(
+        f"W{u['bits']} {u['artifact_bytes']} B loss {u['predicted_loss']:.4g} "
+        f"{u['decode_tok_s']} tok/s" for u in t8["unified"]) + "; rows " + "; ".join(
+        f"{r['budget_bytes']} B -> {r['solver']['artifact_bytes']} B loss "
+        f"{r['solver']['predicted_loss']:.4g} (GA {r['genetic']['fitness']:.4g}) "
+        f"dominates {r['dominates_unified']}" for r in t8["rows"]) + "; latency "
+        + "; ".join(f"{r['budget_decode_ms']} ms -> {r['solver']['bits_histogram']} "
+                    f"{r['solver']['cost_ms']} ms loss {r['solver']['predicted_loss']:.4g} "
+                    f"(GA {r['genetic']['fitness']:.4g})" for r in t8["latency_rows"])
+        + f"; GA never below the solver: {ga_ok}; slowest solver row / slowest "
+          f"unified decode {tok8:.3f} (the reference's CPU floor {T8_MIN_TOK_RATIO}, "
+          f"not gated); measured cost table {t8['measured_cost_meta'].get('timed')}")
+
+    out["checkers"] = [
+        _checker("check_serve_bench.py", "--serve", str(paths["serve"]), "--mt",
+                 str(paths["serve_mt"]), "--require", "both", "--min-tier-ratio", "0"),
+        _checker("check_budget_bench.py", "--budget", str(paths["budget"]), "--require",
+                 "--min-tok-ratio", "0")]
+    for line in out["checkers"]:
+        print(f"[deploy] {line}")
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    print(f"[deploy] phase {out['phase_wall_s']:.2f}s (prediction 60-150); card {_smi()}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the attention families: whisper-small, llama-3.2-vision-90b, gemma3-12b and
 # h2o-danube3-4b at full width
 # ---------------------------------------------------------------------------
@@ -3307,7 +3559,8 @@ def _layer(rows, shapes, **sel) -> dict:
 
 
 def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
-                long_engine, calib_moe, mixed, family, recurrent, trained) -> dict:
+                long_engine, calib_moe, mixed, family, recurrent, trained,
+                deploy) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
@@ -3339,7 +3592,8 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     three at their new shapes (``recurrent_shapes``). The trained model's
     path (``trained``): K5's launches calibrating it at W4 (its W2
     calibration is the main path's), K1's and K2's serving its W4
-    artifact."""
+    artifact. The deployment tables' (``deploy``): K1's, K2's and K4's
+    launches in tables 6, 7 and 8 at full width."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
             "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
@@ -3367,6 +3621,7 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
         entry.update(_family_fields(family, name))
         entry.update(_recurrent_fields(recurrent, name))
         entry["trained_w4_launches"] = trained["serve"]["launches"][name]
+        entry["deploy_launches"] = {t: deploy["launches"][t][name] for t in ("t6", "t7", "t8")}
         out.append(entry)
     t = kv_timed["paged"]
     kv = {
@@ -3394,6 +3649,8 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
                "long_engine_entry_launches": long_engine["bodies"]["kv_decode_entry"],
                "long_engine_split_launches": long_engine["bodies"]["kv_decode_split"]})
     kv.update(_family_fields(family, "kv_decode"))
+    kv["deploy_launches"] = {t: deploy["launches"][t]["kv_decode"] for t in ("t6", "t7", "t8")}
+    kv["deploy_t7_entry_launches"] = deploy["bodies"]["t7"]["kv_decode_entry"]
     out.append(kv)
     dec = _layer(moe["rows"], MOE_SHAPES, M=8)
     pre = _layer(moe["rows"], MOE_SHAPES, M=64)
@@ -3506,7 +3763,6 @@ def main(argv=None) -> None:
         fail("torch.cuda.is_available() is false: this smoke test needs a GPU")
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"the port's package is missing: {SRC / 'repro_torch'}")
-    sys.path.insert(0, str(SRC))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3538,6 +3794,7 @@ def main(argv=None) -> None:
         del trained
         mixed = phase_mixed(torch, fq_kernel, fq_ref, kernel, serve, reuse, Path(tmp))
         del reuse
+        deploy = phase_deploy(torch, kernels, Path(tmp))
         calib_moe = phase_calib_moe(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
         fq_experts = _time_fq_experts(torch, fq_kernel, fq_ref)
         family = {"kernels": phase_family_kernels(torch, kernel, ref, pack, kv_kernel,
@@ -3559,7 +3816,8 @@ def main(argv=None) -> None:
                         "bodies": moe["fixed"]["bodies"]},
                        {"err": fq_err, "rows": fq_rows, "launches": calib["launches"],
                         "experts": fq_experts},
-                       long_engine, calib_moe, mixed, family, recurrent, calib["w4"])
+                       long_engine, calib_moe, mixed, family, recurrent, calib["w4"],
+                       deploy)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -3575,7 +3833,7 @@ def main(argv=None) -> None:
              "moe": moe, "fakequant_timings": fq_rows, "calib": calib,
              "train": train_rec, "baselines": baselines, "mixed": mixed,
              "calib_moe": calib_moe,
-             "fakequant_experts": fq_experts,
+             "fakequant_experts": fq_experts, "deploy": deploy,
              "family": family, "recurrent": recurrent,
              "kernels": line["kernels"],
              "wall_s": time.perf_counter() - t_start}, indent=1, default=str))

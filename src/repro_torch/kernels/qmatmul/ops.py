@@ -56,11 +56,13 @@ def decode_tier_enabled() -> bool:
     return _env_decode_tier()
 
 
-def set_decode_tier(enabled: bool | None) -> None:
+def set_decode_tier(enabled: bool | None) -> bool | None:
     """Force the decode tier on/off (``None`` returns control to the
-    ``REPRO_QMM_DECODE_TIER`` env var). Takes effect at the next call."""
+    ``REPRO_QMM_DECODE_TIER`` env var). Takes effect at the next call.
+    Returns the setting it replaces, so a caller can put it back."""
     global _DECODE_TIER_FORCED
-    _DECODE_TIER_FORCED = enabled
+    prev, _DECODE_TIER_FORCED = _DECODE_TIER_FORCED, enabled
+    return prev
 
 
 # Measured dispatch: (K, N, container_bits) -> winning tier overrides the

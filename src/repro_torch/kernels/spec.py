@@ -98,9 +98,20 @@ class KernelSpecError(ValueError):
     """A kernel launch's shapes violate its contract (shapes named)."""
 
 
+class SmemBudgetError(KernelSpecError):
+    """A plan's block asks for more shared memory than SMEM_PER_BLOCK."""
+
+
 def _check(cond: bool, kernel: str, msg: str) -> None:
     if not cond:
         raise KernelSpecError(f"{kernel}: {msg}")
+
+
+def _check_smem(smem: int, kernel: str) -> None:
+    """Every plan's one test of its block's shared memory."""
+    if smem > SMEM_PER_BLOCK:
+        raise SmemBudgetError(f"{kernel}: {smem} B of shared memory per block > "
+                              f"{SMEM_PER_BLOCK}")
 
 
 def largest_tile(dim: int, cap: int, multiple: int = 1) -> int:
@@ -259,14 +270,14 @@ def plan_qgemv(K: int, N: int, G: int, bits: int, E: int = 1) -> QmmPlan:
         per = 8 // bits
         stage = (128 // per) * QMM_GEMV_COLS + 128 * m * 4
         smem = max(4 * stage, 16 * m * QMM_GEMV_COLS * 4)
+        _check_smem(smem, "qgemv")
         grid = (_ceil(N, QMM_GEMV_COLS), E, 1)
         return QmmPlan("gemv", "gemv", "f32", m, QMM_GEMV_COLS, 128, 1, 4,
                        QMM_GEMV_THREADS, grid, grid[0] * grid[1], smem)
     tile = "dec128" if _ceil(N, QMM_DEC_TILES["dec128"][0]) * E >= SM_COUNT else "dec16"
     bn, warps, slots = QMM_DEC_TILES[tile]
     smem = qmm_dec_smem(bits, tile)
-    _check(smem <= SMEM_PER_BLOCK, "qgemv",
-           f"{smem} B of shared memory per block > {SMEM_PER_BLOCK}")
+    _check_smem(smem, "qgemv")
     grid = (_ceil(N, bn), E, 1)
     return QmmPlan("gemv_tc", tile, "bf16x3", m, bn, QMM_DEC_UNIT, warps, slots, 32 * warps,
                    grid, grid[0] * grid[1], smem)
@@ -296,6 +307,7 @@ def plan_qmatmul(M: int, K: int, N: int, G: int, bits: int, E: int = 1,
         split = 1 if grouped else 2
         grid = (_ceil(N, bn), _ceil(M, bm), E * split)
         smem = 2 * bk * 64 * 4 + (0 if grouped else bm * bn * 4)
+        _check_smem(smem, "qmatmul")
         return QmmPlan("simt", "simt", "f32", bm, bn, bk, split, 0, QMM_SIMT_THREADS, grid,
                        grid[0] * grid[1] * grid[2], smem)
     wide_groups = G == 1 or (K // G) % QMM_WIDE_UNIT == 0
@@ -304,8 +316,7 @@ def plan_qmatmul(M: int, K: int, N: int, G: int, bits: int, E: int = 1,
     base = _ceil(N, bn) * _ceil(M, bm) * E
     k_stages = _ceil(K, QMM_TC_BK)
     smem = qmm_tc_smem(bits, tile)
-    _check(smem <= SMEM_PER_BLOCK, "qmatmul",
-           f"{smem} B of shared memory per block > {SMEM_PER_BLOCK}")
+    _check_smem(smem, "qmatmul")
 
     def fits(sp: int) -> bool:  # a legal split: each block keeps a stage
         return sp <= QMM_MAX_SPLIT and sp <= k_stages and E * sp <= 65535
@@ -466,8 +477,7 @@ def plan_kv_decode(B: int, K: int, S: int, hd: int, G: int = 1) -> KvPlan:
         split *= 2
     plan = kv_plan(hd, G, warps, split, B, K)
     smem = kv_smem(plan.rows, hd, warps, 1)
-    _check(smem <= SMEM_PER_BLOCK, "kv_decode",
-           f"{smem} B of shared memory per block > {SMEM_PER_BLOCK}")
+    _check_smem(smem, "kv_decode")
     return plan
 
 

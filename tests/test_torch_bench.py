@@ -26,7 +26,7 @@ from benchmarks import common as jcommon
 from benchmarks import table4_cost as jtable4
 from benchmarks_torch import (common, fig2_mixed_precision, table1_granularity,
                               table2_weight_only, table3_full_quant, table4_cost,
-                              table5_calib_speed)
+                              table5_calib_speed, table6_deploy)
 from repro.core.evaluate import evaluate as jevaluate
 from repro.models import build_model as j_build_model
 from repro.models import get_config as j_get_config
@@ -128,6 +128,11 @@ TABLE_ROWS = {
         "block_python", "block_scan", "block_speedup",
         "stage_python", "stage_scan", "stage_speedup",
         "net_python", "net_scan", "net_speedup"]),
+    "table6_deploy": (table6_deploy, [
+        "serve_reduced_fp", "serve_reduced_packed_w4",
+        "pack_w2_gchan", "pack_w2_g64", "pack_w4_gchan", "pack_w4_g64",
+        "pack_w8_gchan", "pack_w8_g64", "export_brecq_w4", "serve_fp",
+        "serve_packed_w4"]),
     "fig2_mixed_precision": (fig2_mixed_precision, [
         "unified_w2", "unified_w4", "unified_w8",
         "mixed_35pct", "mixed_50pct", "mixed_70pct",

@@ -244,8 +244,11 @@ def test_port_sources_have_no_reference_imports():
     pat = re.compile(r"^\s*(import|from)\s+(jax|repro|benchmarks)\b")
     files = (sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
              + sorted((ROOT / "benchmarks_torch").glob("*.py"))
-             + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"])
+             + sorted((ROOT / "examples").glob("torch_*.py")) + [ROOT / "chip_smoke.py"]
+             + [ROOT / "scripts" / "run_audit_torch.py"])
     assert len(files) > 60 and ROOT / "benchmarks_torch" / "run.py" in files
+    assert ROOT / "src" / "repro_torch" / "analysis" / "audit" / "kernel_check.py" in files
+    assert ROOT / "src" / "repro_torch" / "dist" / "sharding.py" in files
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
     assert not hits
