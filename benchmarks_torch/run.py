@@ -28,9 +28,9 @@ def _kernels() -> tuple:
 
 
 def main(argv=None) -> None:
-    from . import (fig2_mixed_precision, table1_granularity, table2_weight_only,
-                   table3_full_quant, table4_cost, table5_calib_speed,
-                   table6_deploy)
+    from . import (fig2_mixed_precision, roofline_table, table1_granularity,
+                   table2_weight_only, table3_full_quant, table4_cost,
+                   table5_calib_speed, table6_deploy)
     from .common import device_arg
 
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -39,6 +39,8 @@ def main(argv=None) -> None:
         i = argv.index("--device")
         del argv[i:i + 2]
     tables = [
+        # instant: reads launch/dryrun.py's artifacts, no device work
+        ("roofline_table", lambda device: roofline_table.main()),
         ("table1_granularity", table1_granularity.main),
         ("table2_weight_only", table2_weight_only.main),
         ("table3_full_quant", table3_full_quant.main),
@@ -48,9 +50,6 @@ def main(argv=None) -> None:
         ("fig2_mixed_precision", fig2_mixed_precision.main),
     ]
     only = argv or None
-    if not only or "roofline_table" in only:
-        print("\n===== roofline_table: no counterpart in the port yet (it reads "
-              "launch/dryrun.py's artifacts; ROADMAP 15d) =====")
     for name, fn in tables:
         if only and name not in only:
             continue

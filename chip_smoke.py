@@ -44,9 +44,10 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              staggered vs sequential (4 streams), and under page pressure
              (tokens and logits against the unpressured run); every
              kv_decode launch on the paged entry. Then the long-context
-             engine: 8 streams of prompts up to 2016 tokens (S_cap 2048),
-             every kv_decode launch paged and split over a cluster, every
-             kv read shadowed by its plain version, kernel vs plain logits
+             engine (in a process of its own, see 17): 8 streams of
+             prompts up to 2016 tokens (S_cap 2048), every kv_decode launch
+             paged and split over a cluster, every kv read shadowed by its
+             plain version, kernel vs plain logits
   6. moe     hold ``qmatmul_grouped`` against its plain versions at
              deepseek-moe-16b's expert shapes (E 64; M 4, 8, 9, 64; W4, W2,
              group-128 scales, W3 codes in an int8 container, ragged N) and
@@ -135,8 +136,9 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              (M 12000) and the VLM's cross-attention K/V (M 8192, K 8192),
              kv_decode's paged entry at h2o-danube3-4b's (hd 120, G 4) and
              gemma3-12b's (hd 256, G 2) decode reads, with a window that masks
- 14. whisper whisper-small at full width and depth (12 encoder + 12 decoder
-             layers, every cross-attention gate at 1.0), 32 x 128 tokens
+ 14. whisper whisper-small at full width, 6 encoder + 6 decoder of its
+             12 + 12 layers (cut for the run's wall), every
+             cross-attention gate at 1.0, 32 x 128 tokens
              over 1500 frames each: BRECQ W4 calibration (encoder units, the
              boundary, decoder units; every K5 call shadowed), BRECQ closer
              to FP than RTN on held-out logits and on the last encoder
@@ -149,7 +151,8 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              the card, a fixed batch of 8 x 64 + 32 with 1024 patches an
              image, K1 on 8192 x 28672 counted, replayed by the plain path;
              redrawn patches move the logits
- 16. dense   h2o-danube3-4b at full width and depth, gemma3-12b at full
+ 16. dense   h2o-danube3-4b at full width (6 of 24 layers: cut
+             for the run's wall), gemma3-12b at full
              width (one 5 local + 1 global group) and internlm2-20b at full
              width (4 of 48 layers) through the engine: RTN W4, int8 pool, 8
              slots, 16 streams of 64-256 prompt tokens; every kv_decode
@@ -160,7 +163,12 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              their plain versions at the recurrent families' new shapes (N 8
              and 16 gate projections, hymba's head of N 32001, K 1600 and
              3200; W4 and W2) and at whisper-small's head (768 x 51865), and
-             time them there
+             time them there. Order from 12 on: 12 (with 20's probe
+             beside it), 13, 17, 15, then 14 and 16 in this process while
+             20's ranks and dry runs, 5's long-context engine and 18-19
+             (``--phase engine_long``, ``--phase recurrent``: a process
+             each, results pickled) run beside them; none of those times a
+             kernel, so only their own throughputs share the card
  18. xlstm   xlstm-350m at full width and depth (4 blocks of 5 mLSTM + 1
              sLSTM): BRECQ W4 calibration (32 x 128 tokens, 100 iterations a
              block; every K5 call shadowed), BRECQ closer to FP than RTN on
@@ -174,7 +182,33 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              xlstm's fixed batch (same checks); cut to 4 layers, BRECQ W4
              calibration, export, verified load and the calibrated artifact
              served the same way
- 20. report  one JSON line of kernels (qmatmul at M 32 and, as added
+ 20. dist    two ranks on the one H100 (gloo: NCCL refuses two ranks on
+             one device), spawned apart from this process beside 14 and 16
+             (see 17; this phase then waits for them, holds their results
+             and times K1/K2 alone on the card): the gloo probe
+             (``scripts/dist_probe.py``: which collectives gloo takes on
+             CUDA tensors); brecq-lm-100m at full width and depth: the int8
+             error-feedback all-reduce on each rank's real gradients against
+             its arithmetic on both ranks' gradients (exact), then 20 steps
+             of ``make_dp_train_step`` on a global batch of 16 x 128 beside
+             the uncompressed f32 data-parallel run (loss falls, error
+             buffer non-zero, int8 - f32 at every step within
+             -DIST_LOSS_BELOW .. DIST_LOSS_ABOVE);
+             ``make_train_step`` under dp, tp, fsdp and zero3 on the (data 1,
+             model 2) mesh against the same step on whole tensors (loss,
+             gradient norm, params, each leaf's gradient), bytes of
+             params and Adam state per rank (tp/fsdp/zero3 about half of
+             dp's); RTN W4 served (8 x 64 prompt + 32 greedy) by
+             ``make_prefill_step`` and ``make_decode_step`` under
+             ``Plan("tp")``: every packed matmul on each rank's N/2 columns
+             of the codes (K2 at prefill, K1 at decode, counted per rank
+             against the expected), codes bytes per rank half the whole,
+             logits against the one-rank serve within the kernels' limit, a
+             decode step timed beside the one-rank step; K1 and K2 timed at
+             the half-N shapes; the dry run (``launch/dryrun.py``, fake
+             process group of 256 ranks on the (32, 8) mesh) of
+             tinyllama-1.1b train_4k and W4 decode_32k
+ 21. report  one JSON line of kernels (qmatmul at M 32 and, as added
              fields, M 512; qmatmul_grouped at M 8 and, as added fields, M
              64; the launches of each body on the main paths, for qgemv,
              qmatmul, qmatmul_grouped and kv_decode, whose launches are also
@@ -189,6 +223,7 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
 Exits non-zero on any failure, and when no CUDA device is available.
 
     python3 chip_smoke.py [--json PATH]
+    python3 chip_smoke.py --phase engine_long|recurrent --phase-out FILE
 """
 from __future__ import annotations
 
@@ -205,6 +240,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -338,18 +374,26 @@ SENS_ITERS, SENS_SEQS, MIXED_ITERS = 50, 32, 50
 
 # the attention families (every cross-attention gate at XGATE: JAX's init
 # of 0 would make the logits blind to the frames and the patches).
-# whisper-small at full width and depth: 12 encoder + 12 decoder layers,
+# whisper-small at full width, WHISPER_LAYERS encoder + decoder layers,
 # 32 sequences of 128 decoder tokens over WHISPER_FRAMES frames each
 # (Whisper's 30 s window), W4, 50 iterations a block (100 before the train
 # phase came), minibatch 8
 XGATE = 1.0
 WHISPER_FRAMES, WHISPER_SEQS, WHISPER_ITERS = 1500, 32, 50
+# depth cuts for the run's wall, which must stay well inside the 1,200 s
+# limit on the slowest host the run meets: whisper-small's 12 + 12 layers
+# to 6 + 6, h2o-danube3-4b's 24 to 6. On an H100 80GB HBM3 at 700 W,
+# uncut, the phases before dist took 909.1 s (whisper 66.0 s, danube
+# 48.0 s); danube at 12 layers took 21.6 s on a host where the whole run
+# took 779.5 s, and a run past 1,200 s was refused
+WHISPER_LAYERS = 6
+DANUBE_LAYERS = 6
 # llama-3.2-vision-90b at full width, cut from 100 layers to one group of
 # 5 (4 self-attention + 1 gated cross-attention): 25.5 GB as f32
 VLM_LAYERS = 5
 # gemma3-12b at full width, cut from 48 layers to one 5 local + 1 global
 # group (12 GB as f32, 8 of it the untied 262,144-word table and head);
-# h2o-danube3-4b at full depth (24 layers, 15.9 GB)
+# h2o-danube3-4b at full width (24 layers are 15.9 GB)
 GEMMA_LAYERS = 6
 DENSE_ENGINE_STREAMS, DENSE_PROMPTS = 16, (64, 256)
 # (kernel, M, K, N, bits, timing label): K1 on the VLM's MLP, W4 and W2,
@@ -2803,8 +2847,8 @@ def _with_frames(torch, gen, batch: dict, d: int) -> dict:
 
 
 def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> dict:
-    """whisper-small at full width and depth (12 encoder + 12 decoder
-    layers), every cross-attention gate at XGATE: BRECQ W4 calibration
+    """whisper-small at full width, depth cut to WHISPER_LAYERS encoder +
+    WHISPER_LAYERS decoder layers, every cross-attention gate at XGATE: BRECQ W4 calibration
     through ``repro_torch.core.quantize`` (encoder units, the boundary,
     decoder units; every K5 call shadowed), BRECQ against RTN on held-out
     logits and on the last encoder block's output, export, verified load,
@@ -2815,10 +2859,11 @@ def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> 
     from repro_torch.data import Corpus, CorpusConfig, make_batches
     from repro_torch.interop import tree_leaves
     from repro_torch.kernels.qmatmul import ops as qmm_ops
-    from repro_torch.models import get_model
+    from repro_torch.models import build_model, get_config
 
     t_phase = time.perf_counter()
-    cfg, model = get_model("whisper_small")
+    cfg = dataclasses.replace(get_config("whisper_small"), n_layers=WHISPER_LAYERS)
+    model = build_model(cfg)
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = _open_gates(model.init(gen))
     corpus = Corpus(CorpusConfig(vocab=cfg.vocab))
@@ -2833,7 +2878,7 @@ def phase_whisper(torch, fq_kernel, fq_ref, qm_kernel, serve, workdir: Path) -> 
     walker = reconstruction.Walker(model)
     expect, _ = _fq_expected(model, res)
     units = [u["unit"] for u in st["units"]]
-    print(f"[whisper] {cfg.name} full width and depth ({cfg.n_layers} encoder + "
+    print(f"[whisper] {cfg.name} full width, depth cut to ({cfg.n_layers} encoder + "
           f"{cfg.n_layers} decoder layers, d_model {cfg.d_model}, vocab {cfg.vocab}), "
           f"W4, {WHISPER_SEQS}x{CALIB_LEN} tokens over {WHISPER_FRAMES} frames, iters "
           f"{rc.iters}, calib_bs {rc.calib_bs}: calib_wall_s {st['calib_wall_s']:.2f}, "
@@ -3151,16 +3196,20 @@ def _dense_engine(torch, serve, kernels, arch: str, n_layers: int, body: str) ->
 
 
 def phase_dense_cfgs(torch, serve, kernels) -> dict:
-    """h2o-danube3-4b at full width and depth, gemma3-12b at full width
+    """h2o-danube3-4b at full width (depth cut to DANUBE_LAYERS), gemma3-12b at full width
     (one local:global group) and internlm2-20b at full width (depth cut to
     INTERNLM_LAYERS) through the engine: K4's paged entry on its 8-byte body
     at hd 120 and its 16-byte body at hd 256 and at hd 128 with G 6."""
-    out = {"h2o_danube3_4b": _dense_engine(torch, serve, kernels, "h2o_danube3_4b",
-                                           24, "v8"),
-           "gemma3_12b": _dense_engine(torch, serve, kernels, "gemma3_12b",
-                                       GEMMA_LAYERS, "v16"),
-           "internlm2_20b": _dense_engine(torch, serve, kernels, "internlm2_20b",
-                                          INTERNLM_LAYERS, "v16")}
+    out = {}
+    for arch, n_layers, body in (("h2o_danube3_4b", DANUBE_LAYERS, "v8"),
+                                 ("gemma3_12b", GEMMA_LAYERS, "v16"),
+                                 ("internlm2_20b", INTERNLM_LAYERS, "v16")):
+        t0 = time.perf_counter()
+        out[arch] = _dense_engine(torch, serve, kernels, arch, n_layers, body)
+        out[arch]["phase_s"] = time.perf_counter() - t0
+        print(f"[dense] {arch}: {out[arch]['phase_s']:.1f}s")
+    out["h2o_danube3_4b"]["reduced"] = {"n_layers": [24, DANUBE_LAYERS],
+                                        "why": "the run's wall"}
     out["gemma3_12b"]["reduced"] = {"n_layers": [48, GEMMA_LAYERS]}
     out["internlm2_20b"]["reduced"] = {
         "n_layers": [48, INTERNLM_LAYERS],
@@ -3560,7 +3609,7 @@ def _layer(rows, shapes, **sel) -> dict:
 
 def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
                 long_engine, calib_moe, mixed, family, recurrent, trained,
-                deploy) -> dict:
+                deploy, dist) -> dict:
     """One entry per kernel, ``launches`` from the engine's main path and
     every time at that path's shapes. For qgemv/qmatmul: one layer's 7
     matmuls at the engine's W4 per-channel setting (the decode step's M=8
@@ -3593,7 +3642,10 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     path (``trained``): K5's launches calibrating it at W4 (its W2
     calibration is the main path's), K1's and K2's serving its W4
     artifact. The deployment tables' (``deploy``): K1's, K2's and K4's
-    launches in tables 6, 7 and 8 at full width."""
+    launches in tables 6, 7 and 8 at full width. The dist phase's
+    (``dist``): K1's and K2's launches on each rank serving under
+    ``Plan("tp")`` on two ranks, and their times at one layer's half-N
+    shapes (``half_n_*``: M 8 for K1, M 512 for K2, W4 per-channel)."""
     meta = {"qgemv": ("src/repro/kernels/qmatmul/kernel.py:140", 8),
             "qmatmul": ("src/repro/kernels/qmatmul/kernel.py:83", 32)}
     out = []
@@ -3622,6 +3674,9 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
         entry.update(_recurrent_fields(recurrent, name))
         entry["trained_w4_launches"] = trained["serve"]["launches"][name]
         entry["deploy_launches"] = {t: deploy["launches"][t][name] for t in ("t6", "t7", "t8")}
+        entry["dist_launches_per_rank"] = [r["launches"][name] for r in dist["serve"]["ranks"]]
+        entry.update({f"half_n_{k}": dist["half_n"][name][k]
+                      for k in (*TIMED_KEYS, "bound_by")})
         out.append(entry)
     t = kv_timed["paged"]
     kv = {
@@ -3697,6 +3752,371 @@ def kernel_line(errs, rows, kv_err, kv_timed, launches, bodies, moe, fq,
     return {"kernels": out}
 
 
+# the dist phase: steps of the int8 data-parallel run and its global batch
+DIST_STEPS = 20
+DIST_BATCH = (16, 128)
+# int8 - f32 loss at each step of those runs, both through
+# make_dp_train_step from the same start, lies within -DIST_LOSS_BELOW ..
+# DIST_LOSS_ABOVE: 1.5 x the largest reading on each side over seeds 0-4
+# of scripts/dp_int8_gap.py on the H100 (+0.1583 at step 4, -0.2495 at
+# step 19). On every seed int8 lags early (+0.10 .. +0.16 at steps 2-4) and
+# leads late (-0.15 .. -0.25 at steps 17-19)
+DIST_LOSS_ABOVE = 0.25
+DIST_LOSS_BELOW = 0.375
+DIST_TRAIN_BATCH = (8, 128)  # the sharded train steps' global batch
+# the sharded train steps against one rank's, bf16 compute: each leaf's
+# gradient (Adam's first moment) within this share of its norm (a gradient
+# on the wrong columns reads 1.4; bf16 noise 3.1e-3 under dp, 1.8e-2 under
+# tp on the H100)
+DIST_GRAD_REL = 5e-2
+DIST_SERVE = (8, 64, 32)  # batch, prompt, greedy tokens
+DIST_MESH = (1, 2)  # data x model
+# (arch, shape, --quant) cells of the dry run on the (32, 8) mesh of 256 ranks
+DRYRUN_CELLS = (("tinyllama_1_1b", "train_4k", None), ("tinyllama_1_1b", "decode_32k", 4))
+HALF_N_SHAPES = {(k, n // 2): c for (k, n), c in SLICE_SHAPES.items()}
+# seconds: the gloo probe's cases (a case with no answer counts as not
+# taken), and the ranks' run and each dry-run cell (each took 65 s or less
+# on the H100; a hang fails the run well inside its time limit)
+DIST_PROBE_S = 120
+DIST_WAIT_S = 300
+
+
+def _dist_probe(run: dict) -> dict:
+    """The gloo probe in its own processes: which of the functional
+    collectives DTensor calls gloo takes on CUDA tensors in this torch (the
+    int8 step's ``torch.distributed.all_reduce`` is held by its own check;
+    ``scripts/dist_probe.py`` alone probes both APIs). A case that neither
+    answers nor crashes within DIST_PROBE_S counts as not taken."""
+    proc = subprocess.Popen([sys.executable, str(ROOT / "scripts" / "dist_probe.py"),
+                             "--device", "cuda", "--api", "functional", "--deadline",
+                             str(DIST_PROBE_S)], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            env={**os.environ, "PYTHONPATH": str(SRC)})
+    run["probe"] = proc
+    stdout, stderr = proc.communicate(timeout=DIST_PROBE_S + 60)
+    if proc.returncode:
+        raise RuntimeError(f"scripts/dist_probe.py failed:\n{stdout[-2000:]}\n"
+                           f"{stderr[-3000:]}")
+    return json.loads(stdout.strip().splitlines()[-1])["gloo"]
+
+
+def _dryrun_start(arch: str, shape: str, quant, out: Path):
+    """Start one dry-run cell in its own process (CPU work only)."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+           "--shape", shape, "--mesh", "single", "--out", str(out)]
+    if quant:
+        cmd += ["--quant", str(quant), "--tag", f"w{quant}"]
+    out.mkdir(parents=True, exist_ok=True)
+    log = out / f"{arch}_{shape}_{quant}.log"  # a file: a pipe left unread could fill
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT, text=True,
+                                env={**os.environ, "PYTHONPATH": str(SRC),
+                                     "OMP_NUM_THREADS": "1"})
+    return arch, shape, quant, time.time(), proc, log
+
+
+def _dryrun_result(started) -> dict:
+    arch, shape, quant, t0, proc, log = started
+    try:
+        proc.wait(timeout=DIST_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode:
+        fail(f"dry run {arch} {shape}: rc {proc.returncode}\n{log.read_text()[-3000:]}")
+    tag = f"_w{quant}" if quant else ""
+    art = log.parent / f"{arch}_{shape}_single{tag}.json"
+    d = json.loads(art.read_text())
+    d["wall_s"] = art.stat().st_mtime - t0  # written as the cell ends
+    if not (d["flops_per_rank"] > 0 and isinstance(d["fits_80gb"], bool)):
+        fail(f"dry run {arch} {shape}: no FLOPs or no fit verdict")
+    print(f"[dist] dry run {arch} {shape}{tag} on {d['n_chips']} ranks "
+          f"{d['mesh_shape']} ({d['strategy']}): per rank args "
+          f"{d['argument_bytes_total'] / 1e9:.3f} GB {d['argument_bytes']}, peak "
+          f"{d['peak_bytes'] / 1e9:.3f} GB, fits_80gb {d['fits_80gb']}, FLOPs "
+          f"{d['flops_per_rank']:.4g}, bytes {d['bytes_per_rank']:.4g}, collectives "
+          f"{d['collective_counts']} ({d['collective_bytes_total'] / 1e9:.3f} GB), "
+          f"gathers {d['gathers']}, bound {d['roofline']['bottleneck']} "
+          f"(compute {d['roofline']['compute_s']:.4g} s, memory "
+          f"{d['roofline']['memory_s']:.4g} s, collective {d['roofline']['collective_s']:.4g} s); "
+          f"trace {d['trace_s']}s, {d['wall_s']:.0f}s")
+    return d
+
+
+def dist_start() -> dict:
+    """Start the dist phase's gloo probe (its own processes, light on the
+    card) and a thread that waits on it, then on ``dist_go``, then runs one
+    spawn of two ranks with the three checks. ``phase_dist`` waits for them
+    and holds their results; ``dist_stop`` stops whatever is left."""
+    import threading
+
+    from repro_torch.dist import checks, spawn
+
+    run: dict = {"t0": time.perf_counter(), "probe": None, "dry": [],
+                 "go": threading.Event(), "cancel": False}
+
+    def ranks() -> None:
+        try:
+            t0 = time.perf_counter()
+            run["gloo"] = _dist_probe(run)
+            run["probe_s"] = time.perf_counter() - t0
+            # DTensor calls the functional collectives: those gloo cannot run
+            # on CUDA tensors go through pinned host memory (dist/staging.py)
+            run["staged_ops"] = [op for op, v in run["gloo"]["functional"].items()
+                                 if not v.startswith("ok")]
+            run["go"].wait()
+            if run["cancel"]:
+                return
+            t0 = time.perf_counter()
+            B, S, G = DIST_SERVE
+            run["ranks"] = spawn.run_ranks(checks.several, 2, [
+                ("dp_int8", ("brecq_lm_100m", False, "cuda", *DIST_BATCH, DIST_STEPS)),
+                ("train_steps", ("brecq_lm_100m", False, "cuda", DIST_MESH,
+                                 ("dp", "tp", "fsdp", "zero3"), *DIST_TRAIN_BATCH)),
+                ("serve", ("brecq_lm_100m", False, "cuda", DIST_MESH, 4, B, S, G))],
+                stage=run["staged_ops"], timeout=DIST_WAIT_S)
+            run["ranks_s"] = time.perf_counter() - t0
+            run["staged_calls"] = list(spawn.LAST_STAGED)
+        except BaseException:  # phase_dist fails with it
+            run["error"] = traceback.format_exc()
+        run["done_s"] = time.perf_counter() - run.get("t_go", run["t0"])
+
+    run["thread"] = threading.Thread(target=ranks, name="dist", daemon=True)
+    run["thread"].start()
+    return run
+
+
+def dist_go(run: dict, workdir: Path) -> None:
+    """Start the dry-run cells (CPU only) and let the two ranks start once
+    the probe has answered."""
+    run["t_go"] = time.perf_counter()
+    run["dry"] = [_dryrun_start(a, sh, q, workdir / "dryrun_torch")
+                  for a, sh, q in DRYRUN_CELLS]
+    run["go"].set()
+
+
+def dist_stop(run: dict) -> None:
+    """Stop every process ``dist_start`` and ``dist_go`` started that is
+    still running (a failed phase before ``phase_dist``, or a failed check
+    in it)."""
+    import multiprocessing
+
+    run["cancel"] = True
+    run["go"].set()
+    procs = [run["probe"]] + [started[4] for started in run["dry"]]
+    for proc in procs:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    for child in multiprocessing.active_children():  # the spawned ranks
+        child.kill()
+        child.join()
+
+
+# phases that the whole run starts, each in a process of its own
+# (``--phase``), beside whisper and dense: each times no kernel, and each
+# result comes back pickled. The kernels load from the build's files.
+SUB_WAIT_S = 600
+
+
+def _sub_engine_long(torch, workdir: Path) -> dict:
+    from repro_torch.kernels.kvattn import kernel as kv_kernel
+    from repro_torch.kernels.qmatmul import kernel
+    from repro_torch.launch import serve
+
+    return phase_engine_long(torch, serve, {"qmatmul": kernel, "kvattn": kv_kernel},
+                             workdir)
+
+
+def _sub_recurrent(torch, workdir: Path) -> dict:
+    from repro_torch.kernels.fakequant import kernel as fq_kernel
+    from repro_torch.kernels.fakequant import ref as fq_ref
+    from repro_torch.kernels.qmatmul import kernel
+    from repro_torch.launch import serve
+
+    return {"xlstm": phase_xlstm(torch, fq_kernel, fq_ref, kernel, serve, workdir),
+            "hymba": phase_hymba(torch, fq_kernel, fq_ref, kernel, serve, workdir)}
+
+
+SUB_PHASES = {"engine_long": _sub_engine_long, "recurrent": _sub_recurrent}
+
+
+def _plain(obj):
+    """``obj`` as dicts, lists, tuples and scalars (dict keys kept as they
+    are), so that a phase's record pickles with nothing of torch in it."""
+    if isinstance(obj, dict):
+        return {k: _plain(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map(_plain, obj)) if type(obj) in (list, tuple) else [
+            _plain(v) for v in obj]
+    if obj is None or isinstance(obj, (bool, int, float, str)):
+        return obj
+    if hasattr(obj, "tolist"):  # tensors and numpy values
+        return _plain(obj.tolist())
+    return str(obj)
+
+
+def sub_start(name: str, workdir: Path) -> dict:
+    """Start ``chip_smoke.py --phase name`` (its output to a file, printed
+    when it ends)."""
+    out, log = workdir / f"phase_{name}.pkl", workdir / f"phase_{name}.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                 "--phase", name, "--phase-out", str(out)],
+                                stdout=f, stderr=subprocess.STDOUT,
+                                env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    return {"name": name, "proc": proc, "out": out, "log": log,
+            "t0": time.perf_counter()}
+
+
+def sub_result(sub: dict):
+    """Wait for a ``sub_start`` process, print its output, and return its
+    result; fail if it failed."""
+    import pickle
+
+    proc = sub["proc"]
+    try:
+        proc.wait(timeout=SUB_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    print(sub["log"].read_text(), end="", flush=True)
+    print(f"[{sub['name']}] ran in a process of its own in "
+          f"{time.perf_counter() - sub['t0']:.1f}s (exit {proc.returncode})", flush=True)
+    if proc.returncode:
+        fail(f"the {sub['name']} phase exited {proc.returncode}")
+    return pickle.loads(sub["out"].read_bytes())
+
+
+def phase_dist(torch, kernel, ref, pack, run: dict) -> dict:
+    """Two ranks on the one card (module doc, 20), started by ``dist_go``:
+    DP int8, the sharded train steps, packed TP serving on N shards; then,
+    alone on the card, K1/K2 at half N; the dry run."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    run["thread"].join(timeout=DIST_PROBE_S + DIST_WAIT_S + 120)
+    waited = time.perf_counter() - t_phase
+    if run["thread"].is_alive():
+        fail(f"the dist ranks gave no result in {time.perf_counter() - run['t0']:.0f}s")
+    if "error" in run:
+        fail(f"the dist ranks failed:\n{run['error']}")
+    B, S, G = DIST_SERVE
+    ranks = run["ranks"]
+    out: dict = {k: run[k] for k in ("gloo", "staged_ops", "probe_s", "ranks_s",
+                                     "staged_calls", "done_s")}
+    out["waited_s"] = waited
+    print(f"[dist] gloo on CUDA tensors: {out['gloo']}; staged through host memory: "
+          f"{out['staged_ops'] or 'none'}")
+    print(f"[dist] the probe took {out['probe_s']:.0f}s (beside calib_moe); beside "
+          f"whisper and dense, two ranks ran the int8 DP, train and serve checks in "
+          f"{out['ranks_s']:.0f}s, done {out['done_s']:.0f}s after they could start; "
+          f"this phase waited {waited:.1f}s for them; collectives staged through host "
+          f"memory per rank {out['staged_calls']}")
+    dp = [r[0] for r in ranks]
+    d = dp[0]
+    for r in dp:
+        if r["unequal"] or r["max_abs_diff"] > 0:
+            fail(f"int8 all-reduce: {r['unequal']} of {r['elements']} g_hat elements "
+                 f"differ from the reference arithmetic (max {r['max_abs_diff']:.3e})")
+    print(f"[dist] int8 DP losses {[round(x, 4) for x in d['int8_losses']]}; f32 "
+          f"{[round(x, 4) for x in d['f32_losses']]}")
+    if not (d["int8_losses"][-1] < d["int8_losses"][0] and d["err_abs_sum"] > 0):
+        fail(f"int8 DP: loss {d['int8_losses'][0]:.4f} -> {d['int8_losses'][-1]:.4f}, "
+             f"error buffer sum {d['err_abs_sum']:.3e}")
+    diffs = [a - b for a, b in zip(d["int8_losses"], d["f32_losses"])]
+    if not -DIST_LOSS_BELOW <= min(diffs) <= max(diffs) <= DIST_LOSS_ABOVE:
+        fail(f"int8 DP loss minus f32's {min(diffs):+.4f} .. {max(diffs):+.4f}, outside "
+             f"-{DIST_LOSS_BELOW} .. +{DIST_LOSS_ABOVE}")
+    out["dp_int8"] = {**d, "loss_gap": [min(diffs), max(diffs)]}
+    print(f"[dist] int8 all-reduce == reference arithmetic on {d['elements']} gradient "
+          f"elements (2 rounds); {DIST_STEPS} steps of {DIST_BATCH[0]}x{DIST_BATCH[1]}: "
+          f"loss {d['int8_losses'][0]:.4f} -> {d['int8_losses'][-1]:.4f} (f32 "
+          f"{d['f32_losses'][-1]:.4f}; int8 - f32 {min(diffs):+.4f} .. {max(diffs):+.4f}), {d['int8_s_per_step']*1e3:.0f} "
+          f"ms/step; wire bytes/rank/step {d['wire_bytes']}")
+
+    tr = ranks[0][1]
+    for strat, r in tr.items():
+        lim = 2 * r["lr"] * (1 + 1e-3) + 1e-7
+        if (abs(r["loss"] - r["ref_loss"]) > 5e-3 * abs(r["ref_loss"])
+                or abs(r["gnorm"] - r["ref_gnorm"]) > 2e-2 * r["ref_gnorm"]
+                or r["max_param_diff"] > lim or r["m_rel"] > DIST_GRAD_REL):
+            fail(f"make_train_step {strat}: {r}")
+        if strat != "dp" and r["param_bytes"] + r["adam_bytes"] > 0.55 * (
+                tr["dp"]["param_bytes"] + tr["dp"]["adam_bytes"]):
+            fail(f"{strat} holds {r['param_bytes'] + r['adam_bytes']} bytes a rank, not "
+                 f"about half of dp's {tr['dp']['param_bytes'] + tr['dp']['adam_bytes']}")
+        print(f"[dist] train {strat:5s} on {DIST_MESH}: loss {r['loss']:.5f} (one rank "
+              f"{r['ref_loss']:.5f}) gnorm {r['gnorm']:.4f} ({r['ref_gnorm']:.4f}) params "
+              f"within {r['max_param_diff']:.2e} (<= 2 lr), {r['params_off']:.4%} off by "
+              f"> 1e-6 (most in {r['params_off_leaf']}); gradients within {r['m_rel']:.3e} (Adam's m, per leaf); per "
+              f"rank params "
+              f"{r['param_bytes'] / 1e6:.1f} MB Adam {r['adam_bytes'] / 1e6:.1f} MB; "
+              f"gathers {r['gathers']}; {r['s']:.1f}s")
+    out["train"] = {"steps": tr}
+
+    sv = [r[2] for r in ranks]
+    for rank, r in enumerate(sv):
+        # prefill: every layer's matmuls at M = B x S (K2), a packed head on
+        # the last token at M = B (K1); each decode step: all at M = B (K1)
+        n, h = r["packed_per_forward"], r["packed_heads"]
+        want = {"qgemv": G * n + h, "qmatmul": n - h}
+        got = {k: r["launches"][k] for k in want}
+        halves = {w // 2 for w in r["whole_n"]}
+        if got != want:
+            fail(f"rank {rank}: packed launches {got}, expected {want}")
+        if not all(int(k.rsplit("_N", 1)[1]) in halves for k in r["kernel_n"]):
+            fail(f"rank {rank}: a packed launch off the N/2 shard: {r['kernel_n']}")
+        if 2 * r["codes_bytes_rank"] != r["codes_bytes_whole"]:
+            fail(f"rank {rank}: codes {r['codes_bytes_rank']} bytes of "
+                 f"{r['codes_bytes_whole']}")
+        lim = 1e-4 * r["max_abs_logit"] + 1e-5
+        if r["max_abs_diff"] > lim:
+            fail(f"rank {rank}: TP logits {r['max_abs_diff']:.3e} from the one-rank "
+                 f"serve > {lim:.3e}")
+        if not r["tokens_equal"] and r["min_top2_gap"] > 1e-3 * r["max_abs_logit"]:
+            fail(f"rank {rank}: tokens differ at step {r['first_mismatch_step']} with no "
+                 f"near tie (top-2 gap {r['min_top2_gap']:.3e})")
+    r = sv[0]
+    out["serve"] = {"ranks": sv}
+    print(f"[dist] TP W4 serve {B}x{S}+{G} on {DIST_MESH}: per rank K2 "
+          f"{r['launches']['qmatmul']} K1 {r['launches']['qgemv']} (expected "
+          f"{r['packed_per_forward'] - r['packed_heads']} and {G} x "
+          f"{r['packed_per_forward']} + {r['packed_heads']}) by N "
+          f"{r['kernel_n']}; codes {r['codes_bytes_rank'] / 1e6:.2f} of "
+          f"{r['codes_bytes_whole'] / 1e6:.2f} MB a rank; logits within "
+          f"{r['max_abs_diff']:.3e} (limit {1e-4 * r['max_abs_logit'] + 1e-5:.3e}), "
+          f"tokens equal {r['tokens_equal']}; decode step {r['decode_ms_tp']:.2f} ms "
+          f"on 2 ranks vs {r['decode_ms_one_rank']:.2f} ms on one; gathers "
+          f"{r['gathers']}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    for (k, n) in HALF_N_SHAPES:
+        w = torch.randn((k, n), generator=gen, device=dev) * 0.02
+        wp, sc = pack.rtn_pack_leaf(w, 4, None)
+        for name, fn, plain, m in (("qgemv", kernel.qgemv, ref.qgemv_ref, 8),
+                                   ("qmatmul", kernel.qmatmul, ref.qmatmul_ref, B * S)):
+            x = torch.randn((m, k), generator=gen, device=dev)
+            got_ = fn(x, wp, sc, bits=4)
+            want_ = plain(x, wp, sc, 4)
+            err = float((got_ - want_).abs().max())
+            if err > tolerance(want_):
+                fail(f"{name} at half N M={m} K={k} N={n}: err {err:.3e}")
+            rows.append(_time_case(torch, name, fn, plain, ref, x, wp, sc, 4, None, m, k,
+                                   n, err, err / max(float(want_.abs().max()), 1e-30)))
+    out["half_n"] = {"rows": rows,
+                     "qgemv": _layer(rows, HALF_N_SHAPES, kernel="qgemv"),
+                     "qmatmul": _layer(rows, HALF_N_SHAPES, kernel="qmatmul")}
+
+    out["dryrun"] = [_dryrun_result(started) for started in run["dry"]]
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"[dist] phase wall {out['wall_s']:.0f}s (after the phases it ran beside)")
+    return out
+
+
 def _recurrent_fields(recurrent, name) -> dict:
     """One kernel's added fields from the recurrent families' paths (K1, K2
     and K5): its launches serving (K1, K2) or calibrating (K5) xlstm-350m,
@@ -3751,6 +4171,11 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--json", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--phase", choices=sorted(SUB_PHASES), default=None,
+                    help="run only this phase, which the whole run starts in a "
+                         "process of its own (the kernels already built)")
+    ap.add_argument("--phase-out", default=None,
+                    help="with --phase: pickle the phase's result to this file")
     args = ap.parse_args(argv)
 
     # cuBLAS's deterministic workspace, read when CUDA starts: the train
@@ -3774,41 +4199,96 @@ def main(argv=None) -> None:
     from repro_torch.kernels.qmatmul import kernel, ops, ref
     from repro_torch.launch import serve
 
+    if args.phase:
+        import pickle
+
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{args.phase}_") as tmp:
+            res = _plain(SUB_PHASES[args.phase](torch, Path(tmp)))
+        Path(args.phase_out).write_bytes(pickle.dumps(res))
+        return
+
     t_start = time.perf_counter()
+    laps: dict = {}  # phase -> seconds, printed as each ends
+
+    def lap(name: str) -> None:
+        laps[name] = time.perf_counter() - t_start - sum(laps.values())
+        print(f"[wall] {name} {laps[name]:.1f}s", flush=True)
+
     kernels = {"qmatmul": kernel, "kvattn": kv_kernel}  # the serving paths'
     build = phase_build({**kernels, "fakequant": fq_kernel})
+    lap("build")
     errs, rows = phase_parity(torch, kernel, ref, pack)
+    lap("parity")
     kv_err, kv_timed = phase_kv(torch, kv_kernel, kv_ref)
+    lap("kv")
     host = phase_host(torch, ops, pack)
+    lap("host")
     moe_err, moe_rows = phase_moe_kernel(torch, kernel, ref, pack)
+    lap("moe_kernel")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         _, served = phase_serve(torch, kernel, ops, serve, Path(tmp))
+        lap("serve")
         (launches, bodies), engine = phase_engine(torch, serve, kernels, Path(tmp))
-        long_engine = phase_engine_long(torch, serve, kernels, Path(tmp))
+        lap("engine")
         moe = phase_moe_serve(torch, serve, kernels, Path(tmp))
+        lap("moe")
         fq_err, fq_rows = phase_fq_kernel(torch, fq_kernel, fq_ref)
+        lap("fq_kernel")
         trained, train_rec = phase_train(torch, Path(tmp))
+        lap("train")
         reuse, calib = phase_calib(torch, fq_kernel, fq_ref, kernel, serve, trained,
                                    Path(tmp))
+        lap("calib")
         baselines = phase_baselines(torch, fq_kernel, reuse)
+        lap("baselines")
         del trained
         mixed = phase_mixed(torch, fq_kernel, fq_ref, kernel, serve, reuse, Path(tmp))
+        lap("mixed")
         del reuse
         deploy = phase_deploy(torch, kernels, Path(tmp))
-        calib_moe = phase_calib_moe(torch, fq_kernel, fq_ref, kernel, serve, Path(tmp))
-        fq_experts = _time_fq_experts(torch, fq_kernel, fq_ref)
-        family = {"kernels": phase_family_kernels(torch, kernel, ref, pack, kv_kernel,
-                                                  kv_ref)}
-        family["whisper"] = phase_whisper(torch, fq_kernel, fq_ref, kernel, serve,
-                                          Path(tmp))
-        family["vlm"] = phase_vlm(torch, kernel, serve, Path(tmp))
-        family["dense"] = phase_dense_cfgs(torch, serve, kernels)
-        recurrent = {"kernels": phase_recurrent_kernels(torch, kernel, ref, pack,
-                                                        fq_kernel, fq_ref)}
-        recurrent["xlstm"] = phase_xlstm(torch, fq_kernel, fq_ref, kernel, serve,
-                                         Path(tmp))
-        recurrent["hymba"] = phase_hymba(torch, fq_kernel, fq_ref, kernel, serve,
-                                         Path(tmp))
+        lap("deploy")
+        # the gloo probe's processes start beside calib_moe (light on the
+        # card, which calib_moe keeps busy); the ranks, the dry runs and two
+        # phases in processes of their own (engine_long; xlstm and hymba)
+        # run beside whisper and dense. None of these times a kernel: their
+        # own throughputs are taken beside one another
+        dist_run, subs = dist_start(), {}
+        try:
+            calib_moe = phase_calib_moe(torch, fq_kernel, fq_ref, kernel, serve,
+                                        Path(tmp))
+            lap("calib_moe")
+            fq_experts = _time_fq_experts(torch, fq_kernel, fq_ref)
+            lap("fq_experts")
+            family = {"kernels": phase_family_kernels(torch, kernel, ref, pack, kv_kernel,
+                                                      kv_ref)}
+            lap("family_kernels")
+            recurrent = {"kernels": phase_recurrent_kernels(torch, kernel, ref, pack,
+                                                            fq_kernel, fq_ref)}
+            lap("recurrent_kernels")
+            family["vlm"] = phase_vlm(torch, kernel, serve, Path(tmp))  # 47 GB at peak
+            lap("vlm")
+            torch.cuda.empty_cache()  # the card's memory, for the processes
+            dist_go(dist_run, Path(tmp))
+            subs = {name: sub_start(name, Path(tmp)) for name in SUB_PHASES}
+            family["whisper"] = phase_whisper(torch, fq_kernel, fq_ref, kernel, serve,
+                                              Path(tmp))
+            torch.cuda.empty_cache()
+            lap("whisper")
+            family["dense"] = phase_dense_cfgs(torch, serve, kernels)
+            torch.cuda.empty_cache()
+            lap("dense")
+            long_engine = sub_result(subs["engine_long"])
+            lap("engine_long")
+            recurrent.update(sub_result(subs["recurrent"]))
+            lap("recurrent")
+            dist = phase_dist(torch, kernel, ref, pack, dist_run)
+            lap("dist")
+        finally:
+            dist_stop(dist_run)
+            for sub in subs.values():
+                if sub["proc"].poll() is None:
+                    sub["proc"].kill()
+                    sub["proc"].wait()
 
     line = kernel_line(errs, rows, kv_err, kv_timed, launches, bodies,
                        {"err": moe_err, "rows": moe_rows,
@@ -3817,7 +4297,7 @@ def main(argv=None) -> None:
                        {"err": fq_err, "rows": fq_rows, "launches": calib["launches"],
                         "experts": fq_experts},
                        long_engine, calib_moe, mixed, family, recurrent, calib["w4"],
-                       deploy)
+                       deploy, dist)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout.strip()
@@ -3834,8 +4314,8 @@ def main(argv=None) -> None:
              "train": train_rec, "baselines": baselines, "mixed": mixed,
              "calib_moe": calib_moe,
              "fakequant_experts": fq_experts, "deploy": deploy,
-             "family": family, "recurrent": recurrent,
-             "kernels": line["kernels"],
+             "family": family, "recurrent": recurrent, "dist": dist,
+             "kernels": line["kernels"], "phase_s": laps,
              "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"[wall] wall_s {time.perf_counter() - t_start:.1f}")
     print(json.dumps(line))

@@ -12,7 +12,8 @@ memory = bytes / HBM_BW, collective = collective bytes / LINK_BW.
 
 The reference reads FLOPs, bytes and collective bytes from a compiled XLA
 module (``from_hlo``); the port compiles no XLA, so :func:`from_hlo` has
-no counterpart (ROADMAP 15c/15d) and the bounds come from the shapes.
+no counterpart (ROADMAP 15c) and :func:`from_trace` takes the three
+totals from the dry run's DTensor trace (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -103,10 +104,34 @@ def model_flops(cfg: ArchConfig, shape: ShapeSpec, n_chips: int) -> float:
     return 2.0 * n * tokens / n_chips
 
 
+def from_trace(flops: float, bytes_: float, collective_bytes: float, cfg: ArchConfig,
+               shape: ShapeSpec, n_chips: int, w_bits: int = 16) -> Roofline:
+    """The roofline of one step from the dry run's trace (``launch/dryrun``):
+    FLOPs, bytes and collective bytes per device, on one H100. The fields
+    and their arithmetic are the reference's ``from_hlo``; only the source
+    of the three totals differs (a DTensor trace in place of XLA's HLO)."""
+    compute = flops / PEAK_FLOPS
+    memory = bytes_ / HBM_BW
+    collective = collective_bytes / LINK_BW
+    terms = {"compute": compute, "memory": memory, "collective": collective}
+    bottleneck = max(terms, key=terms.get)
+    mf = model_flops(cfg, shape, n_chips)
+    useful = mf / flops if flops else 0.0
+    dominant = max(terms.values())
+    mem_frac = (ideal_serve_bytes(cfg, shape, n_chips, w_bits) / bytes_
+                if shape.kind == "decode" and bytes_ else 0.0)
+    return Roofline(compute_s=compute, memory_s=memory, collective_s=collective,
+                    bottleneck=bottleneck, model_flops_per_chip=mf,
+                    hlo_flops_per_chip=flops, useful_ratio=useful,
+                    roofline_frac=(mf / PEAK_FLOPS) / dominant if dominant else 0.0,
+                    mem_frac=mem_frac)
+
+
 def from_hlo(hlo_text: str, cfg: ArchConfig, shape: ShapeSpec,
              n_chips: int, w_bits: int = 16):
     """The reference parses a compiled XLA module here. The port compiles
-    none: no counterpart yet (ROADMAP 15c/15d)."""
+    none: no counterpart (ROADMAP 15c); the dry run's trace gives the same
+    terms through :func:`from_trace`."""
     raise NotImplementedError(
         "from_hlo parses XLA HLO, which the port does not compile; it has no "
         "counterpart (ROADMAP 15c/15d): take the bounds from ideal_serve_bytes "

@@ -1,7 +1,10 @@
 """Distribution plane of the port.
 
-Holds :func:`estimate_params` (the exact parameter count of a config) for
-now; the mesh sharding ``Plan`` of the JAX package's ``repro.dist`` is not
-ported yet.
+``sharding`` holds the mesh sharding :class:`Plan` (JAX's rules, spec for
+spec, turned into DTensor placements), :func:`pick_strategy` and
+:func:`estimate_params` (the exact parameter count of a config). The step
+builders that run under a plan are in ``launch/steps.py``; the int8
+error-feedback all-reduce is ``optim/grad_compress.py``.
 """
-from .sharding import estimate_params  # noqa: F401
+from .sharding import (STRATEGIES, Plan, estimate_params,  # noqa: F401
+                       pick_strategy, placements)

@@ -49,12 +49,10 @@ def init(gen: torch.Generator, spec: AttnSpec):
 
 def _project_qkv(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor,
                  kv_x: Optional[torch.Tensor] = None):
-    B, S = x.shape[:2]
     kv_src = x if kv_x is None else kv_x
-    Skv = kv_src.shape[1]
-    q = cm.dense(ctx, p, "wq", x).reshape(B, S, spec.n_heads, spec.head_dim)
-    k = cm.dense(ctx, p, "wk", kv_src).reshape(B, Skv, spec.n_kv_heads, spec.head_dim)
-    v = cm.dense(ctx, p, "wv", kv_src).reshape(B, Skv, spec.n_kv_heads, spec.head_dim)
+    q = cm.split_heads(cm.dense(ctx, p, "wq", x), spec.n_heads, spec.head_dim)
+    k = cm.split_heads(cm.dense(ctx, p, "wk", kv_src), spec.n_kv_heads, spec.head_dim)
+    v = cm.split_heads(cm.dense(ctx, p, "wv", kv_src), spec.n_kv_heads, spec.head_dim)
     if spec.qk_norm:
         q = cm.rmsnorm(p["q_norm"], q)
         k = cm.rmsnorm(p["k_norm"], k)
@@ -66,7 +64,7 @@ def _attend_prompt(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor):
     if spec.use_rope:
         q = cm.apply_rope(q, ctx.positions, spec.rope_theta)
         k = cm.apply_rope(k, ctx.positions, spec.rope_theta)
-    out = cm.chunked_attention(
+    out = cm.local_attention(
         q, k, v, ctx.positions, ctx.positions, causal=spec.causal,
         window=spec.window, q_chunk=spec.q_chunk, kv_chunk=spec.kv_chunk,
         iota_pos=True)
@@ -88,7 +86,7 @@ def apply(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor,
         Skv = kv_x.shape[1]
         if kv_pos is None:
             kv_pos = torch.arange(Skv, device=x.device).expand(B, Skv)
-        out = cm.chunked_attention(
+        out = cm.local_attention(
             q, k, v, ctx.positions, kv_pos, causal=False, window=None,
             q_chunk=spec.q_chunk, kv_chunk=spec.kv_chunk)
     return cm.dense(ctx, p, "wo", out.reshape(B, S, spec.n_heads * spec.head_dim))
@@ -112,16 +110,8 @@ def prefill(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, cache):
     out, k, v = _attend_prompt(ctx, p, spec, x)
     slots = cache["k"].shape[1]
     pos = ctx.positions.to(torch.int32)
-    if slots >= S:
-        cache["k"][:, :S] = k.to(cache["k"].dtype)
-        cache["v"][:, :S] = v.to(cache["v"].dtype)
-        cache["pos"][:, :S] = pos
-    else:  # ring buffer smaller than the prompt: keep the tail
-        tail_p = pos[:, S - slots:]
-        idx = (tail_p[0] % slots).long()  # ring-consistent slot = pos % slots
-        cache["k"][:, idx] = k[:, S - slots:].to(cache["k"].dtype)
-        cache["v"][:, idx] = v[:, S - slots:].to(cache["v"].dtype)
-        cache["pos"][:, idx] = tail_p
+    for name, val in (("k", k), ("v", v), ("pos", pos)):
+        cm.put_prompt(cache[name], val, slots)
     out = out.reshape(B, S, spec.n_heads * spec.head_dim)
     return cm.dense(ctx, p, "wo", out), cache
 
@@ -151,12 +141,15 @@ def decode(ctx: Ctx, p, spec: AttnSpec, x: torch.Tensor, cache):
     slots = cache["k"].shape[1]
     pos = ctx.positions.to(torch.int32)  # (B, C)
     slot = (pos % slots).long()
-    rows = torch.arange(B, device=x.device)[:, None]
-    cache["k"][rows, slot] = k.to(cache["k"].dtype)
-    cache["v"][rows, slot] = v.to(cache["v"].dtype)
-    cache["pos"][rows, slot] = pos
+    for name, val in (("k", k), ("v", v), ("pos", pos)):
+        cm.put_slots(cache[name], slot, val)
+    # a sharded step replicates the (tiny) query so attention reads the
+    # cache in place, and lays out the scores like the cache's slots
+    shard = ctx.extras.get("cache_shard")
+    if shard is not None:
+        q = shard(q, "q")
     out = cm.decode_attend(q, cache["k"].to(q.dtype), cache["v"].to(q.dtype),
-                           cache["pos"], pos, window=spec.window)
+                           cache["pos"], pos, window=spec.window, shard=shard)
     out = out.reshape(B, C, spec.n_heads * spec.head_dim)
     return cm.dense(ctx, p, "wo", out), cache
 

@@ -15,8 +15,10 @@ Conventions follow the JAX package's ``repro.models.common``:
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import sys
 from typing import Any, Optional
 
 import torch
@@ -64,6 +66,242 @@ class QuantHook:
 NO_QUANT = QuantHook()
 
 
+# ---------------------------------------------------------------------------
+# sharded operands (launch/steps.py runs the models on DTensors)
+# ---------------------------------------------------------------------------
+
+# site -> operands gathered there: the places where DTensor has no strategy
+# for an op on a sharded operand, so the step gathers it explicitly
+GATHERS: collections.Counter = collections.Counter()
+
+
+def no_shard(x, kind: str = "tokens"):
+    """The layout hook of an unsharded run (``act_shard``'s default)."""
+    return x
+
+
+def is_dtensor(x) -> bool:
+    """Whether ``x`` is a DTensor (none can exist before the module loads)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def unshard(x, site: str, dims: Optional[tuple] = None):
+    """``x`` itself, unless it is a DTensor sharded or partial where the op
+    at ``site`` cannot take it: then it is gathered over the tensor dims
+    ``dims`` (all of them by default) and ``GATHERS[site]`` counts it. The
+    result stays a DTensor, so autograd runs through the gather."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = set(range(x.ndim)) if dims is None else {d % x.ndim for d in dims}
+    new = [Replicate() if (p.is_partial() or (isinstance(p, Shard) and p.dim in dims))
+           else p for p in x.placements]
+    if new == list(x.placements):
+        return x
+    GATHERS[site] += 1
+    return x.redistribute(x.device_mesh, new)
+
+
+def local_slice(shape, mesh, placements) -> tuple[tuple, tuple]:
+    """(local shape, global offset) of this rank's shard of a ``shape``
+    tensor laid out by ``placements`` on ``mesh``: a dim split over several
+    mesh dims is split major first, in mesh order. Every sharded dim must
+    divide (the plan's rules guarantee it). Plain arithmetic on the mesh
+    coordinate, so it runs under fake tensors too."""
+    size, off = list(shape), [0] * len(shape)
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if not p.is_shard():
+            continue
+        n = mesh.size(i)
+        if size[p.dim] % n:
+            raise ValueError(f"dim {p.dim} of {tuple(shape)} does not split {n} ways")
+        size[p.dim] //= n
+        off[p.dim] += coord[i] * size[p.dim]
+    return tuple(size), tuple(off)
+
+
+def replicated_like(t: torch.Tensor, ref) -> torch.Tensor:
+    """A tensor ``t`` made here, as a replicated DTensor on the mesh of
+    ``ref`` when ``ref`` is a DTensor (an in-place op on it then takes
+    DTensor operands); ``t`` itself otherwise."""
+    if not is_dtensor(ref):
+        return t
+    from torch.distributed.tensor import DTensor, Replicate
+
+    return DTensor.from_local(t, ref.device_mesh, [Replicate()] * ref.device_mesh.ndim,
+                              run_check=False)
+
+
+def _local_like(t, buf):
+    """``t`` (B, C, ...) laid out like the cache leaf ``buf`` (B, S, ...) on
+    every dim but the slot dim, which it holds whole: this rank's part
+    (gathered, in ``GATHERS["cache.write"]``, where ``t`` comes split or
+    partial over a mesh dim that ``buf`` holds whole)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    t = t if is_dtensor(t) else replicated_like(t, buf)
+    pl = [p if isinstance(p, Shard) and p.dim != 1 and p.dim < t.ndim else Replicate()
+          for p in buf.placements]
+    if any(new.is_replicate() and not old.is_replicate()
+           for new, old in zip(pl, t.placements)):
+        GATHERS["cache.write"] += 1
+    return t.redistribute(buf.device_mesh, pl).to_local()
+
+
+def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    return mask.reshape(*mask.shape, *([1] * (like.ndim - mask.ndim)))
+
+
+def put_slots(buf: torch.Tensor, slot: torch.Tensor, val: torch.Tensor) -> None:
+    """``buf[b, slot[b, c]] = val[b, c]`` in place, for a cache leaf ``buf``
+    (B, S, ...), ``slot`` (B, C) and ``val`` (B, C, ...). On a DTensor
+    ``buf`` each rank writes the pairs that land in its own shard of the
+    slots, so no cache shard moves; the writes are masked, not selected,
+    so the step's shapes never depend on the data."""
+    if not is_dtensor(buf):
+        rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+        buf[rows, slot] = val.to(buf.dtype)
+        return
+    shape, off = local_slice(buf.shape, buf.device_mesh, buf.placements)
+    out, v = buf.to_local(), _local_like(val, buf).to(buf.dtype)
+    rel = _local_like(slot, buf).long() - off[1]  # (b, C)
+    n = shape[1]
+    if rel.shape[1] == 1:  # one write a row: rows outside write back what is there
+        inside = (rel >= 0) & (rel < n)
+        rows = torch.arange(rel.shape[0], device=rel.device)[:, None]
+        at = rel.clamp(0, n - 1)
+        out[rows, at] = torch.where(_bcast(inside, v), v, out[rows, at])
+        return
+    hit = rel[:, :, None] == torch.arange(n, device=rel.device)  # (b, C, n)
+    which = hit.to(torch.int8).argmax(1)  # the write that lands on each slot
+    idx = _bcast(which, v).expand(which.shape[0], n, *v.shape[2:])
+    out.copy_(torch.where(_bcast(hit.any(1), out), torch.gather(v, 1, idx), out))
+
+
+def put_prompt(buf: torch.Tensor, val: torch.Tensor, slots: int) -> None:
+    """A prompt's S entries (``val`` (B, S, ...), positions 0..S-1) into a
+    cache leaf of ``slots`` slots, in place: slots 0..S-1, or, for a ring
+    smaller than the prompt, the last ``slots`` positions at ``pos %
+    slots``. On a DTensor ``buf`` each rank fills its own slots."""
+    S = val.shape[1]
+    if not is_dtensor(buf):
+        if slots >= S:
+            buf[:, :S] = val.to(buf.dtype)
+        else:
+            idx = torch.arange(S - slots, S, device=val.device) % slots
+            buf[:, idx] = val[:, S - slots:].to(buf.dtype)
+        return
+    shape, off = local_slice(buf.shape, buf.device_mesh, buf.placements)
+    out, v = buf.to_local(), _local_like(val, buf).to(buf.dtype)
+    lo, hi = off[1], off[1] + shape[1]
+    if slots >= S:
+        a, b = max(lo, 0), min(hi, S)
+        if a < b:
+            out[:, a - lo:b - lo] = v[:, a:b]
+    else:  # global slot g holds position S - slots + (g - (S - slots)) % slots
+        g = torch.arange(lo, hi, device=v.device)
+        out.copy_(v[:, S - slots + (g - (S - slots)) % slots])
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for x (..., K) and a 2-D w (K, N). On DTensors it runs on
+    each rank's shards (``local_map``), mesh dim by mesh dim: a batch or
+    sequence shard of ``x`` stays and ``w`` is gathered there (fsdp's
+    weight gather); else a column shard of ``w`` (N) gives an N-sharded
+    result, and a row shard (K) meets ``x`` sharded along K and gives a
+    partial sum (Megatron's column and row parallel matmuls). DTensor's
+    own matmul flattens the leading dims, which gathers a batch split over
+    two mesh dims."""
+    if not (is_dtensor(x) or is_dtensor(w)):
+        return x @ w
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ref = w if is_dtensor(w) else x
+    x = x if is_dtensor(x) else replicated_like(x, ref)
+    w = w if is_dtensor(w) else replicated_like(w, ref)
+    last = x.ndim - 1
+    xp, wp, op, gx, gw = [], [], [], [], []
+    for a, b in zip(x.placements, w.placements):
+        if isinstance(a, Shard) and a.dim < last:  # rows of x: gather w here
+            xp.append(a), wp.append(Replicate()), op.append(a)
+            gx.append(a), gw.append(Partial())
+        elif isinstance(b, Shard) and b.dim == 1:  # column parallel
+            xp.append(Replicate()), wp.append(b), op.append(Shard(last))
+            gx.append(Partial()), gw.append(b)
+        elif isinstance(b, Shard) and b.dim == 0:  # row parallel
+            xp.append(Shard(last)), wp.append(b), op.append(Partial())
+            gx.append(Shard(last)), gw.append(b)
+        else:
+            xp.append(Replicate()), wp.append(Replicate()), op.append(Replicate())
+            gx.append(Replicate()), gw.append(Replicate())
+    fn = local_map(lambda a, b: a @ b, out_placements=op, in_placements=(xp, wp),
+                   in_grad_placements=(gx, gw), device_mesh=ref.device_mesh,
+                   redistribute_inputs=True)
+    return fn(x, w)
+
+
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, heads * head_dim) -> (B, S, heads, head_dim). A DTensor split
+    along its last dim over more ranks than divide ``heads`` (4 kv heads on
+    a model axis of 8) cannot keep that split per head; it is gathered
+    there first (``GATHERS["heads"]``)."""
+    if is_dtensor(t):
+        n = math.prod(t.device_mesh.size(i) for i, p in enumerate(t.placements)
+                      if p.is_shard() and p.dim == t.ndim - 1)
+        if heads % n:
+            t = unshard(t, "heads", dims=(-1,))
+    return t.reshape(*t.shape[:-1], heads, head_dim)
+
+
+def _whole(t, site: str) -> torch.Tensor:
+    """The whole of ``t`` as a plain tensor, gathered (and counted) if it is
+    a sharded DTensor."""
+    return unshard(t, site).to_local() if is_dtensor(t) else t
+
+
+def packed_matmul(ctx: "Ctx", path: str, x: torch.Tensor, node: Params,
+                  apply_act: bool = True) -> torch.Tensor:
+    """``ctx.quant.packed_matmul`` on a packed node, which a sharded step may
+    hold as DTensors. Codes sharded along N only (the plan's packed rule):
+    each rank runs ``qmm`` on its own columns of the codes and the matching
+    columns of the replicated ``qscale``, on ``x`` whole along K (gathered
+    there, in ``GATHERS["packed.x_k"]``, when it comes sharded or partial),
+    and the result is sharded along N; the codes never move. Any other sharding of
+    the codes (expert stacks along E) is gathered, in ``GATHERS``."""
+    w = node["w"]
+    if not is_dtensor(w):
+        return ctx.quant.packed_matmul(path, x, node, apply_act)
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = w.device_mesh
+    n_dims = [i for i, p in enumerate(w.placements)
+              if isinstance(p, Shard) and p.dim == w.ndim - 1]
+    xd = x if is_dtensor(x) else replicated_like(x, w)
+    if w.ndim != 2 or any(not p.is_replicate() for i, p in enumerate(w.placements)
+                          if i not in n_dims):
+        whole = {k: _whole(v, "packed.codes") for k, v in node.items() if k != "b"}
+        y = ctx.quant.packed_matmul(path, _whole(xd, "packed.x"), whole, apply_act)
+        return replicated_like(y, w)
+    # x whole along K on every mesh dim; a batch shard elsewhere stays
+    xpl = [p if (isinstance(p, Shard) and i not in n_dims and p.dim < xd.ndim - 1)
+           else Replicate() for i, p in enumerate(xd.placements)]
+    if xpl != list(xd.placements):
+        GATHERS["packed.x_k"] += 1
+    shape, off = local_slice(w.shape, mesh, w.placements)
+    qs = node["qscale"]
+    qs = qs.to_local() if is_dtensor(qs) else qs
+    local = {"w": w.to_local(),
+             "qscale": qs[..., off[-1]:off[-1] + shape[-1]].contiguous()}
+    y = ctx.quant.packed_matmul(path, xd.redistribute(mesh, xpl).to_local(), local,
+                                apply_act)
+    ypl = [Shard(y.ndim - 1) if i in n_dims else xpl[i] for i in range(mesh.ndim)]
+    return DTensor.from_local(y, mesh, ypl, run_check=False)
+
+
 @dataclasses.dataclass
 class Ctx:
     """Per-forward context threaded through blocks."""
@@ -95,11 +333,11 @@ def dense(ctx: Ctx, p: Params, name: str, x: torch.Tensor) -> torch.Tensor:
     node = p[name]
     path = f"{ctx.scope}/{name}" if ctx.scope else name
     if "qscale" in node:
-        y = ctx.quant.packed_matmul(path, x, node)
+        y = packed_matmul(ctx, path, x, node)
     else:
         w = ctx.quant.weight(path, node["w"])
         x = ctx.quant.act(path, x)
-        y = x @ w.to(x.dtype)
+        y = matmul(x, w.to(x.dtype))
     if "b" in node:
         y = y + node["b"].to(y.dtype)
     return y
@@ -168,12 +406,53 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> Params:
     return {"table": table * 0.02}
 
 
+def _rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``. On a DTensor table each rank looks its tokens up in
+    its own rows (``local_map``): a table sharded along the vocabulary
+    gives rows of zeros for the tokens outside its shard, and the result is
+    a partial sum over those mesh dims (Megatron's vocab-parallel
+    embedding; exact, one term of each sum is non-zero). A table sharded
+    along d is gathered first."""
+    if not (is_dtensor(table) or is_dtensor(tokens)):
+        return table[tokens.long()]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    ref = table if is_dtensor(table) else tokens
+    mesh = ref.device_mesh
+    table = table if is_dtensor(table) else replicated_like(table, ref)
+    tokens = tokens if is_dtensor(tokens) else replicated_like(tokens, ref)
+    t_pl, k_pl, o_pl, g_pl = [], [], [], []
+    for tp, kp in zip(table.placements, tokens.placements):
+        vocab = isinstance(tp, Shard) and tp.dim == 0
+        batch = not vocab and isinstance(kp, Shard) and kp.dim == 0
+        t_pl.append(Shard(0) if vocab else Replicate())
+        k_pl.append(Shard(0) if batch else Replicate())
+        o_pl.append(Partial() if vocab else Shard(0) if batch else Replicate())
+        # a rank's rows see only its tokens: over a batch shard the table's
+        # gradient is a partial sum
+        g_pl.append(Shard(0) if vocab else Partial() if batch else Replicate())
+    n, off = local_slice(table.shape, mesh, t_pl)
+
+    def look(tab, tok):
+        idx = tok.long() - off[0]
+        inside = (idx >= 0) & (idx < n[0])
+        rows = tab[idx.clamp(0, n[0] - 1)]
+        return torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                device=rows.device))
+
+    fn = local_map(look, out_placements=o_pl, in_placements=(t_pl, k_pl),
+                   in_grad_placements=(g_pl, k_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(table, tokens)
+
+
 def embed_lookup(ctx: Ctx, p: Params, tokens: torch.Tensor) -> torch.Tensor:
     if "table_qscale" in p:  # int8 deployment table: gather, then dequant
-        rows = p["table"][tokens.long()].to(torch.float32)
+        rows = _rows(p["table"], tokens).to(torch.float32)
         return rows * p["table_qscale"][0]
     table = ctx.quant.weight("embed/table", p["table"])
-    return table[tokens.long()]
+    return _rows(table, tokens)
 
 
 def lm_head(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -185,7 +464,7 @@ def lm_head(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
     on every call, as in the JAX package.
     """
     if "qscale" in p:
-        return ctx.quant.packed_matmul("head/w", x, p)
+        return packed_matmul(ctx, "head/w", x, p)
     if "table_qscale" in p:  # tied to an int8 table: (V, d) -> (d, V)
         w = (p["table"].to(torch.float32) * p["table_qscale"][0]).T
     elif "table" in p:  # tied FP table
@@ -194,7 +473,7 @@ def lm_head(ctx: Ctx, p: Params, x: torch.Tensor) -> torch.Tensor:
     else:
         w = ctx.quant.weight("head/w", p["w"])  # (d, vocab)
         x = ctx.quant.act("head/w", x)
-    return x @ w.to(x.dtype)
+    return matmul(x, w.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------
@@ -257,7 +536,7 @@ def _interleave(a: torch.Tensor, b: torch.Tensor, dim: int) -> torch.Tensor:
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross entropy. logits (B,S,V), labels (B,S)."""
-    logits = logits.to(torch.float32)
+    logits = unshard(logits.to(torch.float32), "softmax_xent", dims=(-1,))
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - ll
@@ -366,14 +645,51 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def local_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    q_pos: torch.Tensor, k_pos: torch.Tensor, **kw) -> torch.Tensor:
+    """:func:`chunked_attention`; on a DTensor ``q`` it runs on each rank's
+    own rows and heads (``local_map``), since attention never mixes batch
+    rows or heads. A batch shard of ``q`` stays; a head shard stays where
+    both H and the kv heads K divide it (so the GQA groups stay whole);
+    everything else is gathered first."""
+    if not is_dtensor(q):
+        return chunked_attention(q, k, v, q_pos, k_pos, **kw)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    heads = 1
+    qkv, pos = [], []
+    for i, p in enumerate(q.placements):
+        n = mesh.size(i)
+        if isinstance(p, Shard) and p.dim == 0:
+            qkv.append(Shard(0))
+            pos.append(Shard(0))
+            continue
+        if isinstance(p, Shard) and p.dim == 2 and H % (heads * n) == 0 \
+                and K % (heads * n) == 0:
+            heads *= n
+            qkv.append(Shard(2))
+        else:
+            qkv.append(Replicate())
+        pos.append(Replicate())
+    args = [t if is_dtensor(t) else replicated_like(t, q) for t in (q, k, v, q_pos, k_pos)]
+    fn = local_map(lambda *a: chunked_attention(*a, **kw), out_placements=qkv,
+                   in_placements=(qkv, qkv, qkv, pos, pos), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(*args)
+
+
 def decode_attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   k_pos: torch.Tensor, cur_pos: torch.Tensor, *,
-                  window: Optional[int] = None) -> torch.Tensor:
+                  window: Optional[int] = None, shard=None) -> torch.Tensor:
     """Decode attention against a cache for one or a few query tokens.
 
     GQA-native (no head repeat of the cache). q: (B,C,H,hd); caches
     (B,S,K,hd); k_pos (B,S) absolute positions of cache slots (-1 for
-    empty); cur_pos (B,C) current position of each query token.
+    empty); cur_pos (B,C) current position of each query token. ``shard``
+    (a sharded step's ``cache_shard``) lays out the scores.
     """
     B, C, H, hd = q.shape
     K = k_cache.shape[2]
@@ -385,6 +701,8 @@ def decode_attend(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
     if window is not None:
         valid = valid & (cur_pos[..., None] - k_pos[:, None] < window)
     s = torch.where(valid[:, :, None, None, :], s, MASK_VALUE)
+    if shard is not None:
+        s = shard(s, "scores")
     p = torch.softmax(s, dim=-1).to(q.dtype)
     out = torch.einsum("bckgs,bskd->bckgd", p, v_cache)
     return out.reshape(B, C, H, hd)

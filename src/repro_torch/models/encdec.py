@@ -70,26 +70,28 @@ class EncDecLM(LM):
 
     def encode(self, params: Params, frames: torch.Tensor,
                quant: QuantHook = NO_QUANT, *,
-               remat: Optional[str] = "none") -> torch.Tensor:
+               remat: Optional[str] = "none", act_shard=None) -> torch.Tensor:
         """frames: (B, S_enc, d_model) precomputed embeddings (stub
-        frontend) -> the normed memory (B, S_enc, d_model); ``remat`` as
-        ``LM.forward``'s."""
+        frontend) -> the normed memory (B, S_enc, d_model); ``remat`` and
+        ``act_shard`` as ``LM.forward``'s."""
+        shard = act_shard or cm.no_shard
         B, S, _ = frames.shape
         if S > cfg_max_enc(self.cfg):
             raise ValueError(f"{S} encoder positions > {cfg_max_enc(self.cfg)}")
         pos = torch.arange(S, dtype=torch.int32, device=frames.device).expand(B, S)
         ctx = Ctx(cfg=self.cfg, positions=pos, quant=quant)
-        x = frames + params["enc_pos"][:S]
+        x = shard(frames + params["enc_pos"][:S])
         block = _maybe_remat(lambda p, x: self.apply_block(ctx, self.enc_stack, p, x),
                              remat)
         for layer in range(self.enc_stack.n):
             x, _ = block(_layer(params["enc"], layer), x)
+            x = shard(x)
         return _norm(self.cfg, params["enc_norm"], x)
 
     # -- joint forward -----------------------------------------------------------
 
-    def begin(self, params: Params, batch: dict,
-              quant: QuantHook = NO_QUANT) -> tuple[torch.Tensor, Ctx]:
+    def begin(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
+              act_shard=None) -> tuple[torch.Tensor, Ctx]:
         """The decoder's stem: token embeddings, and a ctx whose
         ``extras["memory"]`` is ``batch["memory"]`` or the encoded
         ``batch["frames"]``."""
@@ -100,13 +102,16 @@ class EncDecLM(LM):
         if "memory" in batch:
             ctx.extras["memory"] = batch["memory"]
         else:
-            ctx.extras["memory"] = self.encode(params, batch["frames"], quant)
+            ctx.extras["memory"] = self.encode(params, batch["frames"], quant,
+                                               act_shard=act_shard)
         return cm.embed_lookup(ctx, params["embed"], tokens), ctx
 
     def forward(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
-                *, remat: Optional[str] = "none") -> tuple[torch.Tensor, torch.Tensor]:
-        """``LM.forward`` with the encoder's layers under ``remat`` too."""
+                *, remat: Optional[str] = "none",
+                act_shard=None) -> tuple[torch.Tensor, torch.Tensor]:
+        """``LM.forward`` with the encoder's layers under ``remat`` and
+        ``act_shard`` too."""
         if "memory" not in batch:
             batch = {**batch, "memory": self.encode(params, batch["frames"], quant,
-                                                    remat=remat)}
-        return super().forward(params, batch, quant, remat=remat)
+                                                    remat=remat, act_shard=act_shard)}
+        return super().forward(params, batch, quant, remat=remat, act_shard=act_shard)

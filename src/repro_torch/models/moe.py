@@ -30,8 +30,9 @@ import math
 import torch
 import torch.nn.functional as F
 
+from . import common as cm
 from . import mlp as mlp_mod
-from .common import Ctx
+from .common import Ctx, is_dtensor, replicated_like, unshard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +74,9 @@ def _shared_spec(spec: MoESpec) -> mlp_mod.MLPSpec:
 
 def _router_probs(ctx: Ctx, p, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
     # the router is FP: it bypasses the quant hook on purpose. (..., d) -> (..., E)
-    return torch.softmax(x.to(torch.float32) @ p["router"]["w"], dim=-1)
+    # (a bf16 router from the train step's cast computes in f32, as JAX promotes)
+    return torch.softmax(cm.matmul(x.to(torch.float32), p["router"]["w"].to(torch.float32)),
+                         dim=-1)
 
 
 def _topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -103,18 +106,48 @@ def _expert_mm(ctx: Ctx, p, name: str, xe: torch.Tensor) -> torch.Tensor:
     node = p[name]
     path = f"{ctx.scope}/{name}"
     if "qscale" in node:
-        return ctx.quant.packed_matmul(path, xe, node, apply_act=False)
+        return cm.packed_matmul(ctx, path, xe, node, apply_act=False)
     w = ctx.quant.weight(path, node["w"])
+    if xe.ndim == 4 and is_dtensor(w):
+        return _local_expert_mm(xe, w)
     return torch.einsum("...ecd,edf->...ecf", xe, w.to(xe.dtype))
 
 
+def _local_expert_mm(xe: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The stacked-expert einsum on each rank's own experts and rows
+    (``local_map``): an expert stack sharded along E keeps its shard, and
+    ``xe`` is sliced to the same experts (a local slice: the dispatch
+    tensors are whole along E) and keeps its batch shard; any other shard
+    of the stack is gathered first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    xd = xe if is_dtensor(xe) else replicated_like(xe, w)
+    w_pl, x_pl, g_pl = [], [], []
+    for wp, xp in zip(w.placements, xd.placements):
+        e_shard = isinstance(wp, Shard) and wp.dim == 0
+        batch = not e_shard and isinstance(xp, Shard) and xp.dim == 0
+        w_pl.append(Shard(0) if e_shard else Replicate())
+        x_pl.append(Shard(1) if e_shard else Shard(0) if batch else Replicate())
+        # over a batch shard each rank's gradient of the stack is a partial sum
+        g_pl.append(Shard(0) if e_shard else Partial() if batch else Replicate())
+    fn = local_map(lambda x, v: torch.einsum("...ecd,edf->...ecf", x, v.to(x.dtype)),
+                   out_placements=x_pl, in_placements=(x_pl, w_pl),
+                   in_grad_placements=(x_pl, g_pl), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(xd, w)
+
+
 def _expert_ffn(ctx: Ctx, p, xe: torch.Tensor) -> torch.Tensor:
-    """(E, C, d) or (B, E, C, d) -> same, through the stacked SwiGLU experts."""
+    """(E, C, d) or (B, E, C, d) -> same, through the stacked SwiGLU experts.
+    ``ctx.extras["moe_shard"]`` lays the intermediates out expert-major."""
+    shard = ctx.extras.get("moe_shard") or cm.no_shard
     xe = ctx.quant.act(f"{ctx.scope}/w_gate", xe)
-    g = _expert_mm(ctx, p, "w_gate", xe)
-    u = _expert_mm(ctx, p, "w_up", xe)
+    g = shard(_expert_mm(ctx, p, "w_gate", xe), "expert_major")
+    u = shard(_expert_mm(ctx, p, "w_up", xe), "expert_major")
     h = ctx.quant.act(f"{ctx.scope}/w_down", F.silu(g) * u)
-    return _expert_mm(ctx, p, "w_down", h)
+    return shard(_expert_mm(ctx, p, "w_down", h), "expert_major")
 
 
 def capacity(spec: MoESpec, S: int) -> int:
@@ -130,10 +163,11 @@ def dispatch(gates: torch.Tensor, eids: torch.Tensor, spec: MoESpec
     cap). A score is the token's gate for that expert, or -inf where the
     expert has fewer takers than its capacity."""
     B, S, _ = eids.shape
+    gates, eids = unshard(gates, "moe.dispatch"), unshard(eids, "moe.dispatch")
     # (B, E, S): gate weight if token s picked expert e (a token's top-k
     # experts are distinct, so each entry is written at most once)
-    sel = torch.full((B, spec.n_experts, S), -math.inf, dtype=torch.float32,
-                     device=gates.device)
+    sel = replicated_like(torch.full((B, spec.n_experts, S), -math.inf,
+                                     dtype=torch.float32, device=gates.device), gates)
     sel.scatter_(1, eids.transpose(1, 2), gates.transpose(1, 2).to(torch.float32))
     return _topk(sel, capacity(spec, S))
 
@@ -148,15 +182,19 @@ def dropped_picks(ctx: Ctx, p, spec: MoESpec, x: torch.Tensor) -> tuple[int, int
 
 
 def apply(ctx: Ctx, p, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, S, d) -> (B, S, d)."""
+    """x: (B, S, d) -> (B, S, d). ``ctx.extras["moe_shard"]`` (``fn(x,
+    kind)``) lays out the routing and dispatch intermediates."""
     B, S, d = x.shape
     E = spec.n_experts
-    probs = _router_probs(ctx, p, spec, x)  # (B, S, E)
+    shard = ctx.extras.get("moe_shard") or cm.no_shard
+    probs = shard(_router_probs(ctx, p, spec, x), "tokens")  # (B, S, E)
     gates, eids = _topk_gates(probs, spec)  # (B, S, k)
 
     if spec.impl == "dense":
         # combine matrix (B, S, E): gate weight where selected, else 0
-        comb = torch.zeros((B, S, E), dtype=x.dtype, device=x.device)
+        eids, gates = unshard(eids, "moe.scatter"), unshard(gates, "moe.scatter")
+        comb = replicated_like(torch.zeros((B, S, E), dtype=x.dtype, device=x.device),
+                               eids)
         comb.scatter_(-1, eids, gates.to(x.dtype))
         # all experts on all tokens (exact; reduced configs only)
         ye = _expert_ffn(ctx, p, x[:, None].expand(B, E, S, d))  # (B, E, S, d)
@@ -165,12 +203,15 @@ def apply(ctx: Ctx, p, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:
     scores, tidx = dispatch(gates, eids, spec)  # (B, E, cap)
     cap = tidx.shape[-1]
     w = torch.where(torch.isfinite(scores), scores, 0.0).to(x.dtype)
-    xe = x[torch.arange(B, device=x.device)[:, None, None], tidx]  # (B, E, cap, d)
-    ye = _expert_ffn(ctx, p, xe) * w[..., None]
+    # the token gather takes the whole batch where the step shards it
+    xg = unshard(x, "moe.dispatch")
+    xe = shard(xg[torch.arange(B, device=x.device)[:, None, None], tidx],
+               "expert_major")  # (B, E, cap, d)
+    ye = shard(_expert_ffn(ctx, p, xe) * w[..., None], "expert_major")
     # per-sequence combine as a one-hot product: a fixed order of additions
     onehot = F.one_hot(tidx.reshape(B, E * cap), S).to(x.dtype)  # (B, E*cap, S)
-    out = torch.bmm(onehot.transpose(1, 2), ye.reshape(B, E * cap, d))
-    return out + _shared(ctx, p, spec, x)
+    out = torch.bmm(onehot.transpose(1, 2), unshard(ye, "moe.combine").reshape(B, E * cap, d))
+    return shard(out, "tokens") + _shared(ctx, p, spec, x)
 
 
 def _shared(ctx: Ctx, p, spec: MoESpec, x: torch.Tensor) -> torch.Tensor:

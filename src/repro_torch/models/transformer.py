@@ -271,8 +271,8 @@ class LM:
 
     # -- full forward ---------------------------------------------------------
 
-    def begin(self, params: Params, batch: dict,
-              quant: QuantHook = NO_QUANT) -> tuple[torch.Tensor, Ctx]:
+    def begin(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
+              act_shard=None) -> tuple[torch.Tensor, Ctx]:
         tokens = batch["tokens"]
         B, S = tokens.shape
         positions = torch.arange(S, dtype=torch.int32,
@@ -290,22 +290,33 @@ class LM:
         return cm.lm_head(ctx, head_p, x)
 
     def forward(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
-                *, remat: Optional[str] = "none") -> tuple[torch.Tensor, torch.Tensor]:
+                *, remat: Optional[str] = "none",
+                act_shard=None) -> tuple[torch.Tensor, torch.Tensor]:
         """Returns (logits, moe aux). ``remat`` (``REMAT``) checkpoints each
-        layer for the backward: it changes memory, never values."""
-        x, ctx = self.begin(params, batch, quant)
+        layer for the backward: it changes memory, never values.
+        ``act_shard`` (``fn(x, kind)``, from ``launch/steps.act_shard_fn``)
+        lays out the hidden state at the embedding and after every block,
+        and the MoE dispatch tensors (``ctx.extras["moe_shard"]``)."""
+        shard = act_shard or cm.no_shard
+        x, ctx = self.begin(params, batch, quant, act_shard=act_shard)
+        if act_shard is not None:
+            ctx.extras["moe_shard"] = act_shard
+        x = shard(x)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for stack in self.stacks:
             block = _maybe_remat(
                 lambda p, x, stack=stack: self.apply_block(ctx, stack, p, x), remat)
             for layer in range(stack.n):
                 x, a = block(_layer(params[stack.name], layer), x)
+                x = shard(x)
                 aux = aux + a
         return self.finish(params, x, ctx), aux
 
     def loss(self, params: Params, batch: dict, quant: QuantHook = NO_QUANT,
-             *, remat: Optional[str] = "none", aux_weight: float = 0.01) -> torch.Tensor:
-        logits, aux = self.forward(params, batch, quant, remat=remat)
+             *, remat: Optional[str] = "none", aux_weight: float = 0.01,
+             act_shard=None) -> torch.Tensor:
+        logits, aux = self.forward(params, batch, quant, remat=remat,
+                                   act_shard=act_shard)
         tokens = batch["tokens"]
         return cm.softmax_xent(logits[:, :-1], tokens[:, 1:]) + aux_weight * aux
 
@@ -427,7 +438,7 @@ class LM:
                                   _norm(cfg, p["norm2"], x))
         return x, cache
 
-    def _run_layers(self, ctx: Ctx, params, x, cache, step):
+    def _run_layers(self, ctx: Ctx, params, x, cache, step, shard=cm.no_shard):
         for stack in self.stacks:
             for layer in range(stack.n):
                 p_i = _layer(params[stack.name], layer)
@@ -435,21 +446,26 @@ class LM:
                 for i, sub in enumerate(stack.subs):
                     x, _ = self._sub_step(ctx, sub, i, p_i[f"sub{i}"], x,
                                           c_i[f"sub{i}"], step)
+                x = shard(x)
         return x
 
-    def prefill(self, params, batch: dict, cache, quant: QuantHook = NO_QUANT):
+    def prefill(self, params, batch: dict, cache, quant: QuantHook = NO_QUANT,
+                *, act_shard=None):
         """Process the prompt; returns (last-token logits, filled cache).
-        The cache is filled in place."""
-        x, ctx = self.begin(params, batch, quant)
+        The cache is filled in place. ``act_shard`` as :meth:`forward`'s."""
+        shard = act_shard or cm.no_shard
+        x, ctx = self.begin(params, batch, quant, act_shard=act_shard)
+        if act_shard is not None:
+            ctx.extras["moe_shard"] = act_shard
         if "memory" in ctx.extras:
             self._fit_xattn_cache(cache, ctx.extras["memory"])
-        x = self._run_layers(ctx, params, x, cache, attn_mod.prefill)
+        x = self._run_layers(ctx, params, shard(x), cache, attn_mod.prefill, shard)
         logits = self.finish(params, x[:, -1:], ctx)
         return logits[:, 0], cache
 
     def decode_step(self, params, tokens: torch.Tensor, cache, pos: torch.Tensor,
                     quant: QuantHook = NO_QUANT, extras: Optional[dict] = None,
-                    *, all_logits: bool = False):
+                    act_shard=None, *, all_logits: bool = False):
         """Decode C tokens in one cached step (cache updated in place).
 
         tokens (B, C); pos (B,) absolute position of ``tokens[:, 0]``
@@ -458,7 +474,8 @@ class LM:
         ``cache`` is dense (:meth:`init_cache`) or paged
         (:meth:`init_paged_cache`, with ``extras={"paged": ...}``).
         Returns last-position logits (B, V), or (B, C, V) with
-        ``all_logits``.
+        ``all_logits``. ``act_shard`` as :meth:`forward`'s; a sharded
+        step passes ``extras={"cache_shard": ...}`` too.
         """
         B, C = tokens.shape
         if C > 1 and self.recurrent:
@@ -468,8 +485,11 @@ class LM:
         ctx = Ctx(cfg=self.cfg, positions=positions, quant=quant)
         if extras:
             ctx.extras.update(extras)
-        x = cm.embed_lookup(ctx, params["embed"], tokens)
-        x = self._run_layers(ctx, params, x, cache, attn_mod.decode)
+        shard = act_shard or cm.no_shard
+        if act_shard is not None:
+            ctx.extras["moe_shard"] = act_shard
+        x = shard(cm.embed_lookup(ctx, params["embed"], tokens))
+        x = self._run_layers(ctx, params, x, cache, attn_mod.decode, shard)
         logits = self.finish(params, x, ctx)
         return (logits if all_logits else logits[:, -1]), cache
 

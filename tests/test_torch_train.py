@@ -15,7 +15,11 @@ equals an unbroken one bit for bit, and checkpoints cross between the
 packages both ways.
 """
 import json
+import os
 import signal
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,6 +39,7 @@ from repro_torch.models import get_model
 from repro_torch.optim import adam
 from test_torch_models import np_params
 
+SRC = str(Path(__file__).resolve().parents[1] / "src")
 LOSS_RTOL = 1e-5
 ADAM_ATOL = 1e-6
 LR_ATOL = 1e-7
@@ -277,10 +282,32 @@ def test_shutdown_checkpoints_at_the_next_step_and_exits(tmp_path, monkeypatch):
     assert CheckpointManager(tmp_path / "c").all_steps() == [2]
 
 
-@pytest.mark.parametrize("flags", [["--grad-compress", "int8"], ["--model-shard", "2"]])
-def test_multi_device_flags_raise(flags):
-    with pytest.raises(NotImplementedError, match="15d"):
-        train.main(CLI + ["--steps", "1", "--device", "cpu", *flags])
+@pytest.mark.parametrize("case", ["int8_with_model_shard", "int8_at_world_one",
+                                  "model_shard_at_world_one"])
+def test_multi_device_flags_raise(case, tmp_path):
+    """The multi-device flags: int8 with a model axis exits as JAX's parser
+    does; int8 alone runs at world 1 (in a subprocess: it starts its own
+    one-rank process group); a model axis that does not divide the ranks
+    raises, naming the sizes, before any group starts."""
+    if case == "int8_with_model_shard":
+        with pytest.raises(SystemExit):
+            train.parse_args(["--grad-compress", "int8", "--model-shard", "2"])
+        assert train.parse_args(["--grad-compress", "int8"]).grad_compress == "int8"
+    elif case == "model_shard_at_world_one":
+        with pytest.raises(ValueError, match="model axis of 2 does not divide the 1 ranks"):
+            train.main(CLI + ["--steps", "1", "--device", "cpu", "--model-shard", "2"])
+    else:
+        out = tmp_path / "m.json"
+        r = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *CLI, "--batch", "2",
+             "--seq", "16", "--steps", "2", "--device", "cpu", "--grad-compress", "int8",
+             "--metrics-out", str(out)],
+            capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": SRC, "OMP_NUM_THREADS": "1"})
+        assert r.returncode == 0, r.stderr[-3000:]
+        m = json.loads(out.read_text())
+        assert m["steps"] == 2 and np.isfinite(m["final_loss"]), m
+        assert "[mesh] 1 ranks, --grad-compress int8" in r.stdout
 
 
 def test_train_defaults_to_the_card(monkeypatch):
