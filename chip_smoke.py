@@ -59,6 +59,23 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              expected grouped launches counted, the plain path replays the
              tokens) and the engine (8 slots, int8 pool; staggered ==
              sequential bit for bit on 4 streams)
+  6b. audit  the program audit on the card (``analysis/audit``,
+             ``build_programs("quick", with_calib=True, device="cuda")``):
+             the qmm tiers, serve decode and prefill of brecq-lm-100m and
+             deepseek-moe-16b, the engine's two programs, budget decode and
+             the captured calibration scan under the four program rules,
+             ``no_host_transfer`` under ``set_sync_debug_mode("error")``;
+             no violation that is not suppressed, each suppression printed
+             with its reason; ``no_host_transfer`` fires on a seeded
+             ``.cpu()`` of a CUDA tensor. Then ``optrace.analyze_step`` and
+             ``roofline.from_step`` on brecq-lm-100m at full width and depth,
+             RTN W4: the fixed batch's decode step (batch 8) and its 8 x 64
+             prefill, one ``[audit]`` line each (FLOPs, bytes, bottleneck,
+             bound, mem_frac against ``ideal_serve_bytes``, the step's wall
+             between CUDA events); the decode step's recorded weight bytes
+             within AUDIT_BYTES_TOL of the packed leaves' ``nbytes``. Alone
+             on the card, within AUDIT_LIMIT_S; its launches are taken back
+             out of the kernels' counts
   7. train   train brecq-lm-100m at full width and depth through
              ``repro_torch.launch.train.main`` with deterministic CUDA
              algorithms: 20 steps under the CLI's defaults (batch 16 x 128
@@ -167,7 +184,9 @@ Drives the port (``src/repro_torch``) only, never the JAX package:
              beside it), 13, 17, 15, then 14 and 16 in this process while
              20's ranks and dry runs, 5's long-context engine and 18-19
              (``--phase engine_long``, ``--phase recurrent``: a process
-             each, results pickled) run beside them; none of those times a
+             each, results pickled) and ``examples/torch_quickstart.py``
+             (QUICKSTART_SMOKE=1: its exit code and its BRECQ-W2 perplexity
+             below its RTN-W2 gated) run beside them; none of those times a
              kernel, so only their own throughputs share the card
  18. xlstm   xlstm-350m at full width and depth (4 blocks of 5 mLSTM + 1
              sLSTM): BRECQ W4 calibration (32 x 128 tokens, 100 iterations a
@@ -253,8 +272,10 @@ SRC = ROOT / "src"
 # two TF32 passes; the wide tile and the decode body of qgemv and
 # qmatmul_grouped at M <= 8 in three bf16 passes). The roofline module
 # imports without torch; with no port beside this script, the import fails.
+# A call's bytes are those the kernel wrappers report (kernels/record.py).
 sys.path.insert(0, str(SRC))
 from repro_torch.analysis.roofline import HBM_BW, PEAK_F32, PEAK_FLOPS, PEAK_TF32  # noqa: E402
+from repro_torch.kernels.record import fq_work, qmm_work  # noqa: E402
 
 # operations per multiply-add and peak rate of each body's arithmetic
 ARITH = {"f32": (2, PEAK_F32), "tf32x2": (4, PEAK_TF32), "bf16x3": (6, PEAK_FLOPS)}
@@ -505,8 +526,7 @@ def bound(m: int, k: int, n: int, bits: int, g: int,
     passes, 4mkn, or three bf16 passes, 6mkn, on the tensor cores; 2mkn f32
     on CUDA cores). Returns (ms, "bytes" or "operations", the f32 CUDA-core
     bound in ms, which earlier rows used)."""
-    nbytes = m * k * 4 + k * n * bits // 8 + g * n * 4 + m * n * 4
-    t_bytes = nbytes / HBM_BW * 1e3
+    t_bytes = qmm_work("qmm", 1, m, k, n, bits, g).bytes / HBM_BW * 1e3
     t_f32 = max(t_bytes, 2 * m * k * n / PEAK_F32 * 1e3)
     per, peak = ARITH[arith]
     t_ops = per * m * k * n / peak * 1e3
@@ -1341,6 +1361,147 @@ def grouped_plain(ref, x, wp, s, bits):
     return fn(x, wp, s, bits)
 
 
+AUDIT_LIMIT_S = 30.0  # the audit phase's own budget
+AUDIT_BYTES_TOL = 0.01  # recorded weight bytes against the packed leaves' nbytes
+
+
+def _kernel_counts(kernels: dict) -> dict:
+    """Every launch counter of the kernel modules, copied."""
+    names = ("LAUNCHES", "BODY_LAUNCHES", "ENTRY_LAUNCHES", "SPLIT_LAUNCHES",
+             "VIEW_LAUNCHES")
+    return {(k, n): copy.deepcopy(getattr(m, n)) for k, m in kernels.items()
+            for n in names if hasattr(m, n)}
+
+
+def _restore_counts(kernels: dict, saved: dict) -> None:
+    for (k, n), value in saved.items():
+        counts = getattr(kernels[k], n)
+        counts.clear()
+        counts.update(value)
+
+
+def _step_wall_ms(torch, fn, reps: int) -> float:
+    """Mean wall of ``fn()`` over ``reps`` calls after one warm-up, between
+    CUDA events (the host's dispatch included, as a served step pays it)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_audit(torch, kernels: dict) -> dict:
+    """The program audit and two step summaries on the card (module doc,
+    audit). Launches made here are taken back out of the kernels' counts."""
+    from repro_torch.analysis.audit.program_check import build_programs
+    from repro_torch.analysis.audit.rules import AuditProgram, run_program_rules
+    from repro_torch.analysis.optrace import analyze_step
+    from repro_torch.analysis.roofline import from_step, ideal_serve_bytes
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.deploy import rtn_artifact
+    from repro_torch.models import get_model
+
+    t0 = time.perf_counter()
+    saved = _kernel_counts(kernels)
+    out: dict = {}
+    try:
+        progs, violations = build_programs("quick", with_calib=True, device="cuda")
+        log, skipped = [], []
+        violations += run_program_rules(progs, verbose=log.append, skipped=skipped)
+        for prog in progs:
+            for rule, why in prog.suppress.items():
+                print(f"[audit] suppressed {rule} on {prog.name}: {why}")
+        ran = len(progs) * 4 - len(skipped)
+        print(f"[audit] {len(progs)} programs on the card under the four program rules "
+              f"({ran} checks, {len(skipped)} skipped; no_host_transfer under "
+              f"set_sync_debug_mode('error')): {len(violations)} violation(s)")
+        for v in violations:
+            print(f"[audit] {v}")
+        if violations:
+            fail(f"the program audit found {len(violations)} violation(s) that are "
+                 f"not suppressed on the card: {violations[0]}")
+        seeded = AuditProgram("seeded_cpu_copy", lambda x: (x * 2).cpu(),
+                              (torch.ones(4, device="cuda"),))
+        found = run_program_rules([seeded], rules=("no_host_transfer",))
+        print(f"[audit] seeded .cpu() of a CUDA tensor: {[str(v) for v in found]}")
+        if not found:
+            fail("no_host_transfer did not fire on a program that copies a CUDA "
+                 "tensor to the CPU")
+        out["programs"] = [p.name for p in progs]
+        out["suppressed"] = {f"{p.name}:{r}": why for p in progs
+                             for r, why in p.suppress.items()}
+        out["checks"], out["violations"] = ran, len(violations)
+        out["seeded"] = [str(v) for v in found]
+
+        # the two steps of the fixed batch, brecq-lm-100m at full width, RTN W4
+        cfg, model = get_model("brecq_lm_100m")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        art = rtn_artifact(params, 4, cfg=cfg)
+        del params
+        hook = art.hook()
+        B, P, G = 8, 64, 32
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        prompts = torch.randint(0, cfg.vocab, (B, P), generator=gen, device="cuda")
+        cache = model.init_cache(B, P + G, torch.float32, "cuda")
+        tok = torch.zeros((B, 1), dtype=torch.int32, device="cuda")
+        pos = torch.full((B,), P, dtype=torch.int32, device="cuda")
+        packed = sum(n["w"].nbytes + n["qscale"].nbytes for n in _packed_nodes(art.params))
+        steps = {"prefill": (lambda: model.prefill(art.params, {"tokens": prompts}, cache,
+                                                   hook), ShapeSpec("audit_prefill", P, B,
+                                                                    "prefill"), 5),
+                 "decode": (lambda: model.decode_step(art.params, tok, cache, pos, hook),
+                            ShapeSpec("audit_decode", P + G, B, "decode"), 20)}
+        for name, (fn, shape, reps) in steps.items():
+            with torch.inference_mode():
+                summary = analyze_step(fn)
+                wall = _step_wall_ms(torch, fn, reps)
+            roof = from_step(summary, cfg, shape, 1, w_bits=4)
+            bound_ms = max(roof.compute_s, roof.memory_s, roof.collective_s) * 1e3
+            ideal = ideal_serve_bytes(cfg, shape, 1, w_bits=4)
+            rec = {"flops": summary.flops, "bytes": summary.bytes,
+                   "weight_bytes": summary.weight_bytes, "launches": summary.launches,
+                   "bottleneck": roof.bottleneck, "bound_ms": bound_ms,
+                   "mem_frac": roof.mem_frac, "ideal_serve_bytes": ideal,
+                   "wall_ms": wall, "wall_over_bound": wall / bound_ms,
+                   "top_ops": dict(list(summary.by_op.items())[:6])}
+            out[name] = rec
+            print(f"[audit] {name} (brecq_lm_100m full, RTN W4, {B} x "
+                  f"{P if name == 'prefill' else 1}): flops {summary.flops:.6e} bytes "
+                  f"{summary.bytes:.6e} (packed weights {summary.weight_bytes:.0f}) "
+                  f"bottleneck {roof.bottleneck} bound {bound_ms * 1e3:.2f} us mem_frac "
+                  f"{roof.mem_frac:.4f} (ideal_serve_bytes {ideal:.6e}) wall "
+                  f"{wall:.3f} ms ({wall / bound_ms:.1f}x the bound); launches "
+                  f"{summary.launches}")
+        got = out["decode"]["weight_bytes"]
+        print(f"[audit] decode weight bytes recorded {got:.0f} vs the packed leaves' "
+              f"nbytes {packed} (w and qscale; limit {AUDIT_BYTES_TOL:.0%})")
+        if abs(got - packed) > AUDIT_BYTES_TOL * packed:
+            fail(f"the decode step's recorded weight bytes {got:.0f} are not within "
+                 f"{AUDIT_BYTES_TOL:.0%} of the packed leaves' {packed}")
+        out["packed_leaf_bytes"] = packed
+        del art, cache
+        torch.cuda.empty_cache()
+    finally:
+        _restore_counts(kernels, saved)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[audit] the phase took {out['seconds']:.1f}s (limit {AUDIT_LIMIT_S:.0f}s)")
+    if out["seconds"] > AUDIT_LIMIT_S:
+        fail(f"the audit phase took {out['seconds']:.1f}s, over its {AUDIT_LIMIT_S}s")
+    return out
+
+
+def _packed_nodes(tree) -> list:
+    """Every packed node (``w`` beside ``qscale``) of a params tree."""
+    if not isinstance(tree, dict):
+        return []
+    found = [tree] if "qscale" in tree else []
+    return found + [n for v in tree.values() for n in _packed_nodes(v)]
+
+
 def phase_moe_kernel(torch, kernel, ref, pack) -> tuple[float, list]:
     """qmatmul_grouped vs its plain versions at deepseek-moe-16b's expert
     shapes, a wrong kernel caught, and timings per MoE layer."""
@@ -1547,7 +1708,7 @@ def fq_bound(k: int, n: int, s_rows: int) -> tuple[float, str]:
     read once, the (s_rows, n) scale read once, the output written once,
     against 7 f32 operations per weight (divide, floor, compare, add, two
     clip compares, multiply)."""
-    t_bytes = 4 * (3 * k * n + s_rows * n) / HBM_BW * 1e3
+    t_bytes = fq_work(k, n, s_rows).bytes / HBM_BW * 1e3
     t_ops = 7 * k * n / PEAK_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3942,6 +4103,54 @@ def _sub_recurrent(torch, workdir: Path) -> dict:
 SUB_PHASES = {"engine_long": _sub_engine_long, "recurrent": _sub_recurrent}
 
 
+QUICKSTART = ROOT / "examples" / "torch_quickstart.py"
+
+
+def quickstart_start(workdir: Path) -> dict:
+    """Start ``examples/torch_quickstart.py`` with QUICKSTART_SMOKE=1 on the
+    card, in a process of its own (its output to a file)."""
+    log = workdir / "quickstart.log"
+    with open(log, "w") as f:
+        proc = subprocess.Popen([sys.executable, str(QUICKSTART)], stdout=f,
+                                stderr=subprocess.STDOUT, cwd=str(ROOT),
+                                env={**os.environ, "PYTHONUNBUFFERED": "1",
+                                     "QUICKSTART_SMOKE": "1", "PYTHONPATH": str(SRC)})
+    return {"name": "quickstart", "proc": proc, "log": log, "t0": time.perf_counter()}
+
+
+def quickstart_result(sub: dict) -> dict:
+    """Wait for the quickstart, print its output and gate on its exit code
+    and on the BRECQ-W2 < RTN-W2 perplexities it prints."""
+    import re
+
+    proc = sub["proc"]
+    try:
+        proc.wait(timeout=SUB_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = sub["log"].read_text()
+    print(text, end="", flush=True)
+    secs = time.perf_counter() - sub["t0"]
+    print(f"[quickstart] ran in a process of its own in {secs:.1f}s "
+          f"(exit {proc.returncode})", flush=True)
+    if proc.returncode:
+        fail(f"examples/torch_quickstart.py exited {proc.returncode}")
+    ppl = {k: float(m.group(1)) for k, pat in (("rtn_w2", r"RTN  W2  : ppl ([0-9.]+)"),
+                                               ("brecq_w2", r"BRECQ W2 : ppl ([0-9.]+)"),
+                                               ("fp", r"FP32     : ppl ([0-9.]+)"))
+           for m in [re.search(pat, text)] if m}
+    if set(ppl) != {"rtn_w2", "brecq_w2", "fp"}:
+        fail(f"the quickstart printed no FP, RTN-W2 and BRECQ-W2 perplexities: {ppl}")
+    print(f"[quickstart] FP ppl {ppl['fp']}, BRECQ-W2 {ppl['brecq_w2']} < RTN-W2 "
+          f"{ppl['rtn_w2']}: {ppl['brecq_w2'] < ppl['rtn_w2']}")
+    if not ppl["brecq_w2"] < ppl["rtn_w2"]:
+        fail(f"the quickstart's BRECQ-W2 ppl {ppl['brecq_w2']} is not below its RTN-W2 "
+             f"{ppl['rtn_w2']}")
+    return {**ppl, "seconds": secs}
+
+
 def _plain(obj):
     """``obj`` as dicts, lists, tuples and scalars (dict keys kept as they
     are), so that a phase's record pickles with nothing of torch in it."""
@@ -4232,6 +4441,8 @@ def main(argv=None) -> None:
         lap("engine")
         moe = phase_moe_serve(torch, serve, kernels, Path(tmp))
         lap("moe")
+        audit = phase_audit(torch, {**kernels, "fakequant": fq_kernel})
+        lap("audit")
         fq_err, fq_rows = phase_fq_kernel(torch, fq_kernel, fq_ref)
         lap("fq_kernel")
         trained, train_rec = phase_train(torch, Path(tmp))
@@ -4270,6 +4481,7 @@ def main(argv=None) -> None:
             torch.cuda.empty_cache()  # the card's memory, for the processes
             dist_go(dist_run, Path(tmp))
             subs = {name: sub_start(name, Path(tmp)) for name in SUB_PHASES}
+            subs["quickstart"] = quickstart_start(Path(tmp))
             family["whisper"] = phase_whisper(torch, fq_kernel, fq_ref, kernel, serve,
                                               Path(tmp))
             torch.cuda.empty_cache()
@@ -4281,6 +4493,8 @@ def main(argv=None) -> None:
             lap("engine_long")
             recurrent.update(sub_result(subs["recurrent"]))
             lap("recurrent")
+            quickstart = quickstart_result(subs["quickstart"])
+            lap("quickstart")
             dist = phase_dist(torch, kernel, ref, pack, dist_run)
             lap("dist")
         finally:
@@ -4315,6 +4529,7 @@ def main(argv=None) -> None:
              "calib_moe": calib_moe,
              "fakequant_experts": fq_experts, "deploy": deploy,
              "family": family, "recurrent": recurrent, "dist": dist,
+             "audit": audit, "quickstart": quickstart,
              "kernels": line["kernels"], "phase_s": laps,
              "wall_s": time.perf_counter() - t_start}, indent=1, default=str))
     print(f"[wall] wall_s {time.perf_counter() - t_start:.1f}")

@@ -1,20 +1,26 @@
 #!/usr/bin/env python
-"""Static auditor of the PyTorch/CUDA port: one program rule, the CUDA
+"""Static auditor of the PyTorch/CUDA port: program rules, the CUDA
 kernels' launch contracts, AST lints — one entry point.
 
     python scripts/run_audit_torch.py                      # everything, on the card
-    python scripts/run_audit_torch.py --device cpu         # the program rule on the host
+    python scripts/run_audit_torch.py --device cpu         # the programs on the host
+    python scripts/run_audit_torch.py --family program --configs all --no-calib
     python scripts/run_audit_torch.py --family ast         # one rule family
     python scripts/run_audit_torch.py --list-rules         # the rule catalog
 
 Families:
 
-  program   no_materialized_f32_weight over the three qmm tiers (decode
-            qgemv, prefill qmatmul, grouped qmatmul_grouped; K 64, N 128,
-            E 4), run under a TorchDispatchMode: through the CUDA kernels on
-            the card (the default), on the plain path with --device cpu.
-            Only the grouped tier's leaf is stacked, so only it carries a
-            forbidden shape; the 2-D tiers are reported as skipped.
+  program   the four program rules (no_materialized_f32_weight,
+            donation_respected, no_host_transfer, stable_compile_cache)
+            over the port's real programs (analysis/audit/program_check.py
+            ``build_programs``): the qmm tiers, serve decode and prefill of
+            each arch, the serve engine's decode and chunked-prefill
+            programs, budget-packed mixed-precision decode and the
+            calibration scan captured from a micro quantize(). Run eagerly:
+            through the CUDA kernels on the card (the default, where
+            no_host_transfer also runs each program under
+            torch.cuda.set_sync_debug_mode("error")), on the plain path
+            with --device cpu. Each suppression is printed with its reason.
   kernel    shape contract + shared memory per block of every launch the
             port's dispatch would issue over ALL registered configs at full
             width, at W2, W4 and W8 (kernels/spec.py's describe_* and plan_*;
@@ -23,7 +29,8 @@ Families:
             (host syncs in a CUDA graph capture, mutable defaults, bare
             asserts and backend="torch" defaults under kernels/).
 
-Exit 0 = no violations; exit 1 with every violation listed.
+Exit 0 = no violation that is not suppressed; exit 1 with every violation
+listed.
 """
 from __future__ import annotations
 
@@ -45,6 +52,12 @@ def main(argv=None) -> int:
                     help="tree to AST-lint instead of src/repro_torch/ and "
                     "benchmarks_torch/ (tests use this to drive the non-zero "
                     "exit path)")
+    ap.add_argument("--configs", choices=("quick", "all"), default="quick",
+                    help="program-family arch scope: quick = the two canonical "
+                    "serving archs; all adds more decode archs (kernel checks "
+                    "always sweep every registered config)")
+    ap.add_argument("--no-calib", action="store_true",
+                    help="skip the micro-quantize calibration capture")
     ap.add_argument("--device", default=None,
                     help="where the program family runs its programs (default: "
                     "cuda, the kernels; raises without a GPU; cpu: the plain path)")
@@ -82,17 +95,23 @@ def main(argv=None) -> int:
                                                          verbose=verbose)
 
     if args.family in ("program", "all"):
-        from repro_torch.analysis.audit.program_check import qmm_programs
+        from repro_torch.analysis.audit.program_check import build_programs
         from repro_torch.analysis.audit.rules import run_program_rules
         from repro_torch.device import resolve
 
         device = resolve(args.device)
-        print(f"== program: no_materialized_f32_weight over the qmm tiers on {device} ==")
-        progs, skipped = qmm_programs(device), []
+        print(f"== program: the program rules over real programs ({args.configs} "
+              f"configs) on {device} ==")
+        progs, builder_viol = build_programs(args.configs, with_calib=not args.no_calib,
+                                             device=device)
+        violations += builder_viol
+        skipped = []
         violations += run_program_rules(progs, verbose=verbose, skipped=skipped)
-        print(f"   checked {len(progs) - len(skipped)} of {len(progs)} programs; "
-              "skipped (no stacked leaf, so no forbidden f32 shape): "
-              + (", ".join(p for p, _ in skipped) or "none"))
+        for prog in progs:
+            for name, reason in prog.suppress.items():
+                print(f"   suppressed {name} on {prog.name}: {reason}")
+        print(f"   {len(progs)} programs, {len(skipped)} (program, rule) pairs "
+              "skipped (suppressed, or nothing to check)")
         if device.type == "cuda":
             from repro_torch.kernels.qmatmul import kernel as qmm_kernel
 

@@ -12,8 +12,9 @@ memory = bytes / HBM_BW, collective = collective bytes / LINK_BW.
 
 The reference reads FLOPs, bytes and collective bytes from a compiled XLA
 module (``from_hlo``); the port compiles no XLA, so :func:`from_hlo` has
-no counterpart (ROADMAP 15c) and :func:`from_trace` takes the three
-totals from the dry run's DTensor trace (``launch/dryrun.py``).
+no counterpart. :func:`from_trace` takes the three totals from the dry
+run's DTensor trace (``launch/dryrun.py``), and :func:`from_step` from one
+measured eager step (``analysis/optrace.analyze_step``).
 """
 from __future__ import annotations
 
@@ -127,12 +128,23 @@ def from_trace(flops: float, bytes_: float, collective_bytes: float, cfg: ArchCo
                     mem_frac=mem_frac)
 
 
+def from_step(summary, cfg: ArchConfig, shape: ShapeSpec, n_chips: int,
+              w_bits: int = 16) -> Roofline:
+    """The roofline of one measured eager step: :func:`from_trace` over the
+    FLOPs, bytes and collective bytes of an ``optrace.StepSummary``
+    (``analysis/optrace.analyze_step``), the counterpart of the reference's
+    ``from_hlo`` over an ``HLOSummary``."""
+    return from_trace(summary.flops, summary.bytes, summary.collective_bytes, cfg, shape,
+                      n_chips, w_bits)
+
+
 def from_hlo(hlo_text: str, cfg: ArchConfig, shape: ShapeSpec,
              n_chips: int, w_bits: int = 16):
     """The reference parses a compiled XLA module here. The port compiles
-    none: no counterpart (ROADMAP 15c); the dry run's trace gives the same
-    terms through :func:`from_trace`."""
+    none (ROADMAP 15c/15d): a measured step's terms come from
+    ``optrace.analyze_step`` and :func:`from_step`, the dry run's from
+    :func:`from_trace`."""
     raise NotImplementedError(
-        "from_hlo parses XLA HLO, which the port does not compile; it has no "
-        "counterpart (ROADMAP 15c/15d): take the bounds from ideal_serve_bytes "
-        "and model_flops")
+        "from_hlo parses XLA HLO, which the port does not compile (ROADMAP 15c/15d): "
+        "summarise a step with repro_torch.analysis.optrace.analyze_step and take its "
+        "roofline with roofline.from_step (a dry run's: roofline.from_trace)")

@@ -93,6 +93,21 @@ _TRACE_LOG: list[str] = []  # appended when a program is built
 _HITS = {"unit": 0, "layer": 0, "probe": 0, "cap": 0}
 _MISSES = {"unit": 0, "layer": 0, "probe": 0, "cap": 0}
 
+# The arguments the scan programs write in place, by position in their
+# signatures: (opt, ostate), as the reference declares them donated. The
+# program audit (``analysis/audit``) holds the captured programs to them
+# (``donation_respected``).
+UNIT_DONATE = (2, 3)
+LAYER_DONATE = (2, 3)
+
+# Audit capture hook: when a list is installed here, run_unit_loop and
+# run_layer_loop append (tag, program, args, walker) for every scan-mode
+# call, so the auditor gets the real programs with real arguments without
+# re-implementing the calibration plumbing. ``walker`` is the Walker a unit
+# program reads through its weakref (None for a layer program), which the
+# auditor keeps alive to run the program again. The programs run as before.
+AUDIT_CAPTURE: list | None = None
+
 
 def cache_stats() -> dict:
     return {"unit_hits": _HITS["unit"], "unit_misses": _MISSES["unit"],
@@ -317,6 +332,10 @@ def run_unit_loop(progs: UnitPrograms, rc, bparams, states, opt, ostate, gen,
                                         x_q, x_fp, z_fp, g2, batch, mem, lr_scale)
             losses.append(float(l))
         return opt, np.asarray(losses, np.float64)
+    if AUDIT_CAPTURE is not None:
+        AUDIT_CAPTURE.append(("unit_scan", progs.scan,
+                              (bparams, states, opt, ostate, gen, x_q, x_fp, z_fp, g2,
+                               batch, mem, lr_scale), progs.walker_cell[0]()))
     opt, ostate, losses = progs.scan(bparams, states, opt, ostate, gen,
                                      x_q, x_fp, z_fp, g2, batch, mem, lr_scale)
     return opt, losses.cpu().numpy()  # the single fetch of the trajectory
@@ -464,5 +483,8 @@ def run_layer_loop(progs: LayerPrograms, rc, W, st, opt, ostate, gen, xin, zt,
                                         lr_scale)
             losses.append(float(l))
         return opt, np.asarray(losses, np.float64)
+    if AUDIT_CAPTURE is not None:
+        AUDIT_CAPTURE.append(("layer_scan", progs.scan,
+                              (W, st, opt, ostate, gen, xin, zt, lr_scale), None))
     opt, ostate, losses = progs.scan(W, st, opt, ostate, gen, xin, zt, lr_scale)
     return opt, losses.cpu().numpy()

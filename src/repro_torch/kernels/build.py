@@ -24,6 +24,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
+# Every library build_library has loaded in this process: its name -> path
+# (the program audit's ``stable_compile_cache`` reads its size).
+LOADED: dict[str, str] = {}
+
+
 def build_dir() -> Path:
     """``build/kernels`` at the repository root (listed in .gitignore)."""
     return Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -62,6 +67,7 @@ def build_library(name: str, sources, flags=NVCC_FLAGS) -> tuple[ctypes.CDLL, di
                                f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
         os.replace(tmp, lib_path)
         built, log = True, res.stderr
+    LOADED[f"{name}:{lib_path.name}"] = str(lib_path)
     info = {"path": str(lib_path), "built": built,
             "seconds": time.perf_counter() - t0, "ptxas": log}
     return ctypes.CDLL(str(lib_path)), info

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import record
 from ..spec import KernelSpecError
 from . import kernel
 from .ref import fakequant_ref
@@ -71,6 +72,8 @@ def adaround_forward(w: torch.Tensor, v: torch.Tensor, st, cfg, *,
     scale = st.scale.reshape(-1, w.shape[-1])
     if backend == "auto":
         backend = "cuda" if w.is_cuda else "torch"
-    if backend == "torch":
-        return fakequant_ref(w, v, scale, cfg.qmin, cfg.qmax, hard)
-    return kernel.fakequant(w, v, scale, qmin=cfg.qmin, qmax=cfg.qmax, hard=hard)
+    with record.call(record.fq_work, w.numel() // w.shape[-1], w.shape[-1],
+                     scale.shape[0]):
+        if backend == "torch":
+            return fakequant_ref(w, v, scale, cfg.qmin, cfg.qmax, hard)
+        return kernel.fakequant(w, v, scale, qmin=cfg.qmin, qmax=cfg.qmax, hard=hard)

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import record
 from . import kernel
 from .ref import kv_decode_ref, paged_view
 
@@ -58,10 +59,13 @@ def attend_int8(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
         raise ValueError(f"attend_int8 backend {backend!r} not in {BACKENDS}")
     if backend == "auto":
         backend = "cuda" if q.is_cuda else "torch"
-    if backend == "torch":
-        return kv_decode_ref(q, k8, v8, kscale, vscale, kpos, cur_pos, window)
-    return kernel.kv_decode(q, k8, v8, kscale, vscale, kpos, cur_pos,
-                            window=window)
+    B, S = kpos.shape
+    with record.call(record.kv_work, "kv_decode", B, q.shape[1], k8.shape[2], q.shape[2],
+                     S, q.element_size(), B * S * 4, kscale.element_size()):
+        if backend == "torch":
+            return kv_decode_ref(q, k8, v8, kscale, vscale, kpos, cur_pos, window)
+        return kernel.kv_decode(q, k8, v8, kscale, vscale, kpos, cur_pos,
+                                window=window)
 
 
 def attend_int8_paged(q: torch.Tensor, cache: dict, block_tables: torch.Tensor,
@@ -82,12 +86,16 @@ def attend_int8_paged(q: torch.Tensor, cache: dict, block_tables: torch.Tensor,
         raise ValueError(f"attend_int8_paged backend {backend!r} not in {BACKENDS}")
     if backend == "auto":
         backend = "cuda" if q.is_cuda else "torch"
-    if backend == "torch":
-        gather, kpos = paged_view(cache, block_tables, page_size)
-        return kv_decode_ref(q, gather(cache["k_pages"]), gather(cache["v_pages"]),
-                             gather(cache["k_scale"]).to(torch.float32),
-                             gather(cache["v_scale"]).to(torch.float32), kpos, cur_pos,
-                             window)
-    return kernel.kv_decode_paged(q, cache["k_pages"], cache["v_pages"], cache["k_scale"],
-                                  cache["v_scale"], block_tables, cur_pos,
-                                  page_size=page_size, window=window)
+    B, mp = block_tables.shape
+    with record.call(record.kv_work, "kv_decode_paged", B, q.shape[1],
+                     cache["k_pages"].shape[2], q.shape[2], mp * page_size,
+                     q.element_size(), B * mp * 4, cache["k_scale"].element_size()):
+        if backend == "torch":
+            gather, kpos = paged_view(cache, block_tables, page_size)
+            return kv_decode_ref(q, gather(cache["k_pages"]), gather(cache["v_pages"]),
+                                 gather(cache["k_scale"]).to(torch.float32),
+                                 gather(cache["v_scale"]).to(torch.float32), kpos,
+                                 cur_pos, window)
+        return kernel.kv_decode_paged(q, cache["k_pages"], cache["v_pages"],
+                                      cache["k_scale"], cache["v_scale"], block_tables,
+                                      cur_pos, page_size=page_size, window=window)

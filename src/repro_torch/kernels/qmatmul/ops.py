@@ -30,6 +30,7 @@ import torch
 
 from ...core.quantizer import pack_int
 from ...deploy.pack import code_layout
+from .. import record
 from . import kernel
 from .ref import qgemv_ref, qmatmul_ref, qmm_grouped_dense_ref, qmm_grouped_ref
 
@@ -163,11 +164,14 @@ def select_tier(m: int, qw: QuantizedLinear) -> str:
 
 def _qmm_2d(x2: torch.Tensor, qw: QuantizedLinear, backend: str,
             tier: str) -> torch.Tensor:
-    if backend == "torch":
-        ref = qgemv_ref if tier == "decode" else qmatmul_ref
-        return ref(x2, qw.packed, qw.scales, qw.bits)
-    fn = kernel.qgemv if tier == "decode" else kernel.qmatmul
-    return fn(x2, qw.packed, qw.scales, bits=qw.bits)
+    name = "qgemv" if tier == "decode" else "qmatmul"
+    with record.call(record.qmm_work, name, 1, x2.shape[0], qw.k, qw.packed.shape[-1],
+                     qw.bits, qw.scales.shape[0]):
+        if backend == "torch":
+            ref = qgemv_ref if tier == "decode" else qmatmul_ref
+            return ref(x2, qw.packed, qw.scales, qw.bits)
+        fn = kernel.qgemv if tier == "decode" else kernel.qmatmul
+        return fn(x2, qw.packed, qw.scales, bits=qw.bits)
 
 
 def _qmm_grouped(x: torch.Tensor, qw: QuantizedLinear,
@@ -190,12 +194,14 @@ def _qmm_grouped(x: torch.Tensor, qw: QuantizedLinear,
         scales = scales.expand(e, *scales.shape[1:]).contiguous()
     # (..., E, C, K) -> (E, B'*C, K): experts become the leading grid dim
     xg = x.reshape(-1, e, c, k).transpose(0, 1).reshape(e, -1, k).contiguous()
-    if backend == "torch":
-        ref = (qmm_grouped_ref if xg.shape[1] <= DECODE_M_MAX
-               else qmm_grouped_dense_ref)
-        out = ref(xg, qw.packed, scales, qw.bits)
-    else:
-        out = kernel.qmatmul_grouped(xg, qw.packed, scales, bits=qw.bits)
+    with record.call(record.qmm_work, "qmatmul_grouped", e, xg.shape[1], k,
+                     qw.packed.shape[-1], qw.bits, scales.shape[1]):
+        if backend == "torch":
+            ref = (qmm_grouped_ref if xg.shape[1] <= DECODE_M_MAX
+                   else qmm_grouped_dense_ref)
+            out = ref(xg, qw.packed, scales, qw.bits)
+        else:
+            out = kernel.qmatmul_grouped(xg, qw.packed, scales, bits=qw.bits)
     n = out.shape[-1]
     return out.reshape(e, -1, c, n).transpose(0, 1).reshape(*lead, e, c, n)
 

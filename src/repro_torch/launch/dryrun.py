@@ -19,7 +19,8 @@ it writes ``artifacts/dryrun_torch/<arch>_<shape>_<mesh>[_tag].json``:
     partial over (a replicated dim computes the whole); bytes per rank:
     every op's operands and outputs, local shares, unfused
   * collectives per rank: counts (``CommDebugMode``) and the bytes of
-    their local operands
+    their local operands (``analysis/optrace.comm_mode``, which a measured
+    step's summary shares)
   * the roofline terms on one H100 (``analysis/roofline.from_trace``) and
     ``fits_80gb``
 
@@ -156,30 +157,6 @@ def _cost_mode():
     return LocalCost()
 
 
-def _comm_mode():
-    """``CommDebugMode`` counting the bytes of each collective's local
-    operands beside its counts."""
-    import torch
-    from torch.distributed.tensor.debug import CommDebugMode
-
-    class CommBytes(CommDebugMode):
-        def __init__(self):
-            super().__init__()
-            self.bytes = collections.Counter()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            name = str(func._overloadpacket)
-            if "c10d_functional" in name and "wait" not in name:
-                flat = [a for a in args if isinstance(a, torch.Tensor)]
-                flat += [t for a in args if isinstance(a, (list, tuple)) for t in a
-                         if isinstance(t, torch.Tensor)]
-                self.bytes[name.split(".")[-1]] += sum(t.numel() * t.element_size()
-                                                       for t in flat)
-            return super().__torch_dispatch__(func, types, args, kwargs)
-
-    return CommBytes()
-
-
 def _tree_bytes(tree) -> int:
     """Bytes this rank holds of a tree of (fake) DTensors."""
     if isinstance(tree, dict):
@@ -188,12 +165,12 @@ def _tree_bytes(tree) -> int:
     return local.numel() * local.element_size()
 
 
-def run_cell(args) -> dict:
-    import torch
+def cell_step(args):
+    """The cell's step on the fake group (joined here unless a group
+    exists): (cfg, shape, mesh, strategy, step, fake args, build seconds)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    from ..analysis import roofline as rl
     from ..configs.base import SHAPES
     from ..dist.sharding import Plan, pick_strategy
     from ..models import get_model
@@ -217,10 +194,20 @@ def run_cell(args) -> dict:
     step = steps_mod.make_step(shape.kind, model, plan, shape, quant_bits=args.quant,
                                group=args.group, remat=args.remat)
     fake_args = step.fake_args(dm)
+    return cfg, shape, mesh, strategy, step, fake_args, time.time() - t0
+
+
+def run_cell(args) -> dict:
+    import torch
+
+    from ..analysis import roofline as rl
+    from ..analysis.optrace import comm_mode
+    from . import steps as steps_mod
+
+    cfg, shape, mesh, strategy, step, fake_args, t_build = cell_step(args)
     arg_bytes = [_tree_bytes(a) for a in fake_args]
-    t_build = time.time() - t0
     steps_mod.GATHERS.clear()
-    flops, comm = _cost_mode(), _comm_mode()
+    flops, comm = _cost_mode(), comm_mode()  # the collectives as optrace counts them
     t0 = time.time()
     with comm, flops:
         step.trace(fake_args)

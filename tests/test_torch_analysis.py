@@ -31,6 +31,8 @@ from repro_torch.configs.base import SHAPES
 from repro_torch.dist.sharding import estimate_params
 from repro_torch.kernels import spec
 from repro_torch.models import ARCH_IDS, get_config
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -234,7 +236,8 @@ def test_run_audit_cli_exits_nonzero_on_violation(tmp_path):
 def test_run_audit_cli_lists_rules(capsys):
     rc, out = _audit_main(capsys, "--list-rules")
     assert rc == 0
-    names = {"no_materialized_f32_weight", "kernel_tile_divisibility",
+    names = {"no_materialized_f32_weight", "donation_respected", "no_host_transfer",
+             "stable_compile_cache", "kernel_tile_divisibility",
              "kernel_smem_budget", "no_host_sync_in_graph", "no_mutable_default_arg",
              "no_bare_assert_in_kernels", "no_plain_backend_default"}
     listed = {line.split()[1] for line in out.splitlines() if line.strip()}

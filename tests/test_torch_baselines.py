@@ -39,20 +39,11 @@ from repro_torch.data import Corpus, CorpusConfig, arch_extras_fn, make_batches
 from repro_torch.interop import flatten_paths, params_from_numpy, params_to_numpy
 from repro_torch.models import build_model, get_config
 from test_torch_families import np_params
+from torch_threads import one_torch_thread  # noqa: F401
 
 W_BITS = 2
 ADA = dict(iters=3, calib_bs=4, lr=1e-3)  # N = 8 sequences: rng.choice draws 4
 LAPQ_RATIOS = (0.7, 1.0)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Thousands of small ops: beside other test workers on the same
-    cores, torch's intra-op thread pool only adds contention."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _pair(arch: str, n_layers: int, params_fn):

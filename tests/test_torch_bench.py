@@ -34,18 +34,9 @@ from repro_torch.core.evaluate import evaluate
 from repro_torch.core.mixed_precision import GAConfig
 from repro_torch.interop import flatten_paths, params_from_numpy, params_to_numpy
 from repro_torch.models import build_model, get_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small ops: beside other test workers on the same cores,
-    torch's intra-op thread pool only adds contention."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_bench_config_and_sizes_match_jax():

@@ -30,15 +30,7 @@ from repro_torch.kernels.fakequant import ops as tfq_ops
 from repro_torch.kernels.fakequant.ref import fakequant_ref
 from repro_torch.kernels.spec import KernelSpecError, describe_fakequant
 from repro_torch.optim import adam as tadam
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Calibration is thousands of small ops: beside other test workers on
-    the same cores, torch's intra-op thread pool only adds contention."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def T(a):

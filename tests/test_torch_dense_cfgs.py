@@ -22,6 +22,8 @@ from repro_torch.launch import serve
 from repro_torch.models import get_model
 from test_torch_families import (both, close, decode_matches_forward, forward_both,
                                  greedy_both, jb, models, np_batch, np_params, tb)
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ARCHS = ["gemma3_12b", "h2o_danube3_4b", "internlm2_20b"]
 

@@ -22,6 +22,7 @@ from repro_torch.deploy import (ArtifactCorruptionError, ArtifactSchemaError,
                                 QuantizedArtifact, pack, rtn_artifact)
 from repro_torch.interop import flatten_paths, params_from_numpy, params_to_numpy
 from repro_torch.models import get_config
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def np_params(arch="brecq_lm_100m", seed=0):

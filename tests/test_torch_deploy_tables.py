@@ -22,7 +22,6 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
-import torch
 
 from benchmarks import table7_serve_mt as j7
 from benchmarks_torch import common, table6_deploy, table7_serve_mt, table8_budget
@@ -36,6 +35,7 @@ from repro_torch.deploy import rtn_artifact
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels.qmatmul import ops as qmm_ops
 from repro_torch.models import get_model
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 ARCH = "brecq_lm_100m"
@@ -45,16 +45,6 @@ T7_MODES = {"int8": ("int8", "none", False), "fp16": ("float16", "none", False),
             "pressure_none": ("int8", "none", True),
             "pressure_prompt": ("int8", "prompt", True)}
 UNCOMPARED = ("sustained_tok_s", "compile_s")  # walls
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """Many small ops: beside other test workers on the same cores,
-    torch's intra-op thread pool only adds contention."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -55,6 +55,8 @@ from repro_torch.models import get_model
 from repro_torch.optim import adam
 from repro_torch.optim.grad_compress import init_error, make_dp_train_step
 from test_torch_models import np_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 MESHES = [((4, 2), ("data", "model")), ((2, 2, 2), ("pod", "data", "model")),
           ((8,), ("data",))]

@@ -45,6 +45,8 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models.encdec import EncDecLM
 from test_torch_families import (TOL, both, close, decode_matches_forward, forward_both,
                                  greedy_both, jb, models, np_batch, np_params, tb)
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ARCH = "whisper_small"
 

@@ -34,6 +34,8 @@ from repro_torch.models import get_model
 from repro_torch.launch.watchdog import GracefulShutdown
 from repro_torch.models.common import NO_QUANT
 from test_torch_serve import np_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ECFG = dict(num_slots=3, page_size=4, num_pages=49, max_len=32,
             prefill_chunk=8, record_logits=True)

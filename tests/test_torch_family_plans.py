@@ -16,6 +16,8 @@ import pytest
 
 from repro_torch.kernels import spec
 from repro_torch.models import get_config
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ARCHS = ["whisper_small", "llama32_vision_90b", "gemma3_12b", "h2o_danube3_4b",
          "internlm2_20b"]

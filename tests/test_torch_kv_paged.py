@@ -20,6 +20,8 @@ import torch
 from repro.models import common as jcm
 from repro_torch.kernels.kvattn import ops
 from repro_torch.models import common as cm
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 

@@ -24,6 +24,8 @@ from repro.kernels.kvattn.kernel import kv_decode as j_kv_decode
 from repro.kernels.kvattn.ops import quantize_kv as j_quantize_kv
 from repro_torch.kernels import spec
 from repro_torch.kernels.kvattn.ref import kv_decode_ref, kv_decode_split_ref
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 JAX_TOL = 1e-4
 

@@ -21,6 +21,8 @@ from repro.kernels.kvattn.ref import kv_decode_ref as j_kv_decode_ref
 from repro_torch.kernels import spec
 from repro_torch.kernels.kvattn import ops
 from repro_torch.kernels.kvattn.ref import kv_decode_ref
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 

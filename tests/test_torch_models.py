@@ -21,6 +21,7 @@ from repro_torch.deploy import pack as tpack
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import get_model
 from repro_torch.models.transformer import LM
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-4
 

@@ -29,6 +29,8 @@ from repro_torch.models import build_model, get_config, get_model
 from repro_torch.models import moe as tmoe
 from repro_torch.models.common import Ctx
 from test_torch_models import both, np_params, tokens
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 MOE_TOL = 1e-5

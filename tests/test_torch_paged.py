@@ -18,6 +18,8 @@ import torch
 
 from repro.models import common as jcm
 from repro_torch.models import common as cm
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 PAGES, PS, KH, HD, H = 12, 4, 2, 16, 4

@@ -40,6 +40,8 @@ from repro_torch.core.quantizer import pack_int, unpack_int
 from repro_torch.kernels import spec
 from repro_torch.kernels.kvattn.ops import quantize_kv
 from repro_torch.kernels.kvattn.ref import kv_decode_ref
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 UNIT = spec.QMM_DEC_UNIT
 PIECE = {"dec16": 2, "dec128": 16}  # bytes of a packed row a thread reads: columns = 8 x piece

@@ -17,6 +17,8 @@ from repro.kernels.qmatmul import ref as jref
 from repro_torch.core.quantizer import pack_int
 from repro_torch.kernels import spec
 from repro_torch.kernels.qmatmul import kernel, ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 

@@ -21,6 +21,8 @@ from repro.kernels.qmatmul import ops as jops
 from repro_torch.deploy import pack_codes, rtn_pack_leaf
 from repro_torch.kernels import spec
 from repro_torch.kernels.qmatmul import ops, ref
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-4
 

@@ -37,6 +37,7 @@ from repro.kernels.qmatmul import ops as jops
 from repro.kernels.qmatmul import ref as jref
 from repro_torch.core.quantizer import pack_int, unpack_int
 from repro_torch.kernels import spec
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def tol(ref) -> float:

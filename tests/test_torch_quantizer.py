@@ -7,6 +7,7 @@ import torch
 
 from repro.core import quantizer as jq
 from repro_torch.core import quantizer as tq
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _codes(rng, shape, bits):

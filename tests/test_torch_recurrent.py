@@ -48,6 +48,8 @@ from repro_torch.models import get_config, get_model
 from repro_torch.models.transformer import build_stacks
 from test_torch_families import (TOL, both, close, forward_both, greedy_both, jb, models,
                                  np_batch, np_params, tb)
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ARCHS = ["hymba_1_5b", "xlstm_350m"]
 # (prompt, forward) lengths: hymba's pass its window of 32

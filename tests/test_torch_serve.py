@@ -23,6 +23,8 @@ from repro_torch.deploy import QuantizedArtifact
 from repro_torch.interop import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models import get_model
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-4
@@ -141,7 +143,8 @@ def test_serve_rejects_mismatched_artifact(tmp_path):
 
 
 def _run(args, **kw):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    # one intra-op thread, as the module's own (one_torch_thread)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     return subprocess.run([sys.executable, *args], capture_output=True, text=True,
                           env=env, cwd=ROOT, timeout=300, **kw)
 
@@ -249,6 +252,10 @@ def test_port_sources_have_no_reference_imports():
     assert len(files) > 60 and ROOT / "benchmarks_torch" / "run.py" in files
     assert ROOT / "src" / "repro_torch" / "analysis" / "audit" / "kernel_check.py" in files
     assert ROOT / "src" / "repro_torch" / "dist" / "sharding.py" in files
+    for new in ("src/repro_torch/analysis/optrace.py", "src/repro_torch/kernels/record.py",
+                "examples/torch_quickstart.py", "examples/torch_serve_quantized.py",
+                "examples/torch_mixed_precision_search.py"):
+        assert ROOT / new in files, new
     hits = [f"{f}:{i}" for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1) if pat.match(line)]
     assert not hits

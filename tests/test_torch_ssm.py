@@ -24,6 +24,8 @@ from repro_torch.models import common as cm
 from repro_torch.models import ssm
 from repro_torch.models.common import Ctx
 from test_torch_families import RECURRENT_FP
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 SCAN_TOL = 1e-6
 TOL = 1e-5

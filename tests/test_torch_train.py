@@ -38,6 +38,8 @@ from repro_torch.launch import train
 from repro_torch.models import get_model
 from repro_torch.optim import adam
 from test_torch_models import np_params
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 LOSS_RTOL = 1e-5

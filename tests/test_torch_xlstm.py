@@ -21,6 +21,8 @@ from repro.models.transformer import _xlstm_prefill as j_xlstm_prefill
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import xlstm
 from repro_torch.models.common import Ctx
+from torch_threads import one_torch_thread  # noqa: F401
+
 
 TOL = 1e-5
 SPEC = dict(d_model=32, n_heads=2, expansion=2.0, chunk=8)
