@@ -1,0 +1,2 @@
+"""Scheduler tick: ``readers.tick_ms``."""
+from perfbench.readers import tick_ms as read  # noqa: F401
