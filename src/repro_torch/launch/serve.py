@@ -466,7 +466,11 @@ def _serve_engine(args, cfg, model, params, artifact):
           f"occupancy {m['mean_slot_occupancy']:.2f}; resident KV "
           f"{m['mean_resident_kv_bytes_per_stream']/1e3:.1f}KB/stream "
           f"(page {ecfg.page_size} tok, {m['bytes_per_page']/1e3:.1f}KB)"
-          f"{pressure}")
+          f"{pressure}; ticks {m['ticks']} (chunk {m['ticks_chunk']}, decode "
+          f"{m['ticks_decode']}, both {m['ticks_both']}); prefill rows "
+          f"{m['chunk_tokens']}/{m['chunk_rows']}; head of queue waited on "
+          f"slots {m['admit_wait_slots']}, pages {m['admit_wait_pages']}; "
+          f"plans built {m['plans_built']}")
     return {"metrics": m,
             "tokens": {u: list(r.generated) for u, r in eng.requests.items()},
             "states": {u: r.state for u, r in eng.requests.items()}}

@@ -33,7 +33,10 @@ class StepWatchdog:
         self._t0 = time.perf_counter()
 
     def stop(self, step: int) -> float:
-        dt = time.perf_counter() - self._t0
+        return self.observe(time.perf_counter() - self._t0, step)
+
+    def observe(self, dt: float, step: int) -> float:
+        """Count one step of ``dt`` seconds timed by the caller."""
         self.n += 1
         if self.mean is None:
             self.mean = dt

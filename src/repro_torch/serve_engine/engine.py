@@ -40,6 +40,10 @@ Faults are isolated per stream: a non-finite logit row fails only that
 request (state ``failed``); everything else in the batch continues.
 ``drain()`` is the graceful way out — stop admission, finish (or
 preempt-and-report) in-flight work, return per-request statuses.
+
+Telemetry: integer counters (``counters()``, also in ``metrics()``) and
+spans of each tick's phases and each request's wait (``trace.py``; off
+by default, ``engine.trace.enable()``).
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ from ..kernels.kvattn.ops import BACKENDS
 from ..launch.watchdog import StepWatchdog
 from ..models.common import NO_QUANT, PAGED_KV_DTYPES
 from .pages import PagePool, PagePoolExhausted
+from .trace import Trace, now
 
 OVERCOMMIT_MODES = ("none", "prompt")
 
@@ -200,7 +205,11 @@ class ServeEngine:
         self._pf_ptr = 0
         self._admit_seq = 0
         self._decode_ticks = 0
-        self.decode_tick_log: list[int] = []  # tick ids that ran a decode step
+        # tick kinds (the idle ticks are the rest), prefill rows fed and
+        # computed, and why the queue's head waited at an admission
+        self._ticks_chunk = self._ticks_decode = self._ticks_both = 0
+        self._chunk_tokens = self._chunk_rows = 0
+        self._admit_wait_slots = self._admit_wait_pages = 0
         self._tokens_generated = 0
         self._occupancy: list[float] = []
         self._resident: list[float] = []
@@ -217,6 +226,8 @@ class ServeEngine:
         self.watchdog_notes: list[str] = []
         self._watchdog = StepWatchdog(log=self.watchdog_notes.append,
                                       label="tick")
+        # spans, off by default (serve_engine/trace.py)
+        self.trace = Trace(self.counters)
         # whole-model KV bytes per page: every pool leaf is
         # (stack_n, num_pages, page_size, ...), so nbytes/num_pages sums
         # one page's footprint across all layers (scales included)
@@ -335,6 +346,8 @@ class ServeEngine:
         self.requests[uid] = req
         self.waiting.append(req)
         self._log("submit", uid)
+        if self.trace.on:
+            self.trace.phase(uid, "queued")
         return uid
 
     def cancel(self, uid: int) -> bool:
@@ -349,6 +362,8 @@ class ServeEngine:
         req.state = "cancelled"
         self._cancelled += 1
         self._log("cancel", uid)
+        if self.trace.on:
+            self.trace.phase(uid, None)
         return True
 
     def pending(self) -> bool:
@@ -357,19 +372,34 @@ class ServeEngine:
     # -- scheduler tick ----------------------------------------------------
 
     def step(self) -> bool:
-        """One tick: expire, admit, one prefill chunk, one batched decode."""
+        """One tick: expire, admit, one prefill chunk, one batched decode.
+        Its one clock pair feeds ``wall_s``, the watchdog and the span."""
         self._ensure_compiled()
-        self._watchdog.start()
-        t0 = time.perf_counter()
+        tr = self.trace
+        t0 = now()
+        if tr.on:
+            tr.open_tick(t0)
         self._expire_deadlines()
         self._admit()
-        did = self._prefill_one()
-        did = self._decode_all() or did
+        if tr.on:
+            tr.child("tick.schedule", t0)
+        chunk = self._prefill_one()
+        decode = self._decode_all()
+        if chunk and decode:
+            self._ticks_both += 1
+        elif chunk:
+            self._ticks_chunk += 1
+        elif decode:
+            self._ticks_decode += 1
         self._peak_pages = max(self._peak_pages, self.pool.pages_in_use)
-        self._wall_s += time.perf_counter() - t0
-        self._watchdog.stop(self.tick)
+        t1 = now()
+        if tr.on:
+            tr.close_tick(t1)
+        dt = (t1 - t0) * 1e-9
+        self._wall_s += dt
+        self._watchdog.observe(dt, self.tick)
         self.tick += 1
-        return did or self.pending()
+        return chunk or decode or self.pending()
 
     def run(self, max_ticks: Optional[int] = None, *, strict: bool = True,
             shutdown=None) -> dict:
@@ -477,6 +507,24 @@ class ServeEngine:
         if (self.block_tables != -1).any():
             raise AssertionError("block table rows not cleared after release")
 
+    def counters(self) -> dict:
+        """The integer counters of ticks, prefill rows and admission
+        waits; ``plans_built`` is the kernel plans made so far in the
+        process (``kernels/spec.py``'s caches' misses)."""
+        from ..kernels import spec
+
+        return {
+            "ticks_chunk": self._ticks_chunk,
+            "ticks_decode": self._ticks_decode,
+            "ticks_both": self._ticks_both,
+            "chunk_tokens": self._chunk_tokens,
+            "chunk_rows": self._chunk_rows,
+            "admit_wait_slots": self._admit_wait_slots,
+            "admit_wait_pages": self._admit_wait_pages,
+            "plans_built": sum(f.cache_info().misses for f in (
+                spec.plan_qgemv, spec.plan_qmatmul, spec.plan_kv_decode)),
+        }
+
     def metrics(self) -> dict:
         toks = self._tokens_generated
         return {
@@ -504,6 +552,7 @@ class ServeEngine:
             "stragglers": self._watchdog.stragglers,
             "mean_tick_s": self._watchdog.mean or 0.0,
             "draining": self.draining,
+            **self.counters(),
         }
 
     # -- internals ---------------------------------------------------------
@@ -543,6 +592,8 @@ class ServeEngine:
                 req.state = "expired"
                 self._expired += 1
                 self._log("expired", req.uid)
+                if self.trace.on:
+                    self.trace.phase(req.uid, None)
 
     def _admit(self) -> None:
         if self.draining:
@@ -552,6 +603,7 @@ class ServeEngine:
             req = self.waiting[0]
             need = self._admission_need(req)
             if not self.pool.can_reserve(need):
+                self._admit_wait_pages += 1
                 break  # head-of-line: preserve FIFO completion order
             self.waiting.popleft()
             self.pool.reserve(req.uid, need)
@@ -569,6 +621,10 @@ class ServeEngine:
                 np.concatenate([req.prompt,
                                 np.asarray(req.generated[:-1], np.int32)]))
             self._log("admit" if req.preemptions == 0 else "readmit", req.uid)
+            if self.trace.on:
+                self.trace.phase(req.uid, "prefill")
+        if self.waiting and not free:
+            self._admit_wait_slots += 1
 
     def _release(self, req: Request) -> None:
         self.pool.free_owner(req.uid)
@@ -588,6 +644,8 @@ class ServeEngine:
         self._preemptions += 1
         self.waiting.appendleft(req)
         self._log("preempt", req.uid)
+        if self.trace.on:
+            self.trace.phase(req.uid, "queued")
 
     def _preempt_for(self, req: Request) -> bool:
         """Pick and evict a victim so ``req`` can take a page. Lowest
@@ -607,6 +665,8 @@ class ServeEngine:
         req.error = reason
         self._failed += 1
         self._log("failed", req.uid)
+        if self.trace.on:
+            self.trace.phase(req.uid, None)
 
     def _ensure_pages(self, req: Request, last_pos: int) -> None:
         """Lazily allocate pages to cover positions [0, last_pos].
@@ -643,6 +703,9 @@ class ServeEngine:
 
     def _prefill_chunk(self, req: Request) -> None:
         C = self.cfg.prefill_chunk
+        tr = self.trace
+        if tr.on:
+            t = now()
         src = req.prefill_src if req.prefill_src is not None else req.prompt
         off = req.prefill_off
         chunk = src[off:off + C]
@@ -651,11 +714,18 @@ class ServeEngine:
             chunk = np.pad(chunk, (0, C - n_real))
         self._ensure_pages(req, off + n_real - 1)
         s = req.slot
-        logits, self.cache = self._chunk_c(
-            self.params, self._dev(chunk[None].astype(np.int32)), self.cache,
-            self._dev(np.full((1,), off, np.int32)),
-            self._dev(self.block_tables[s:s + 1].copy()))
+        tok_d = self._dev(chunk[None].astype(np.int32))
+        pos_d = self._dev(np.full((1,), off, np.int32))
+        bt_d = self._dev(self.block_tables[s:s + 1].copy())
+        if tr.on:
+            t = tr.child("chunk.stage", t, req.uid)
+        logits, self.cache = self._chunk_c(self.params, tok_d, self.cache,
+                                           pos_d, bt_d)
+        if tr.on:
+            t = tr.child("chunk.launch", t, req.uid)
         req.prefill_off = off + n_real
+        self._chunk_tokens += n_real
+        self._chunk_rows += C
         if req.preemptions:
             self._replay_chunks += 1
         self._log("prefill_chunk", req.uid)
@@ -665,8 +735,12 @@ class ServeEngine:
                 # decode continues from generated[-1]
                 req.state = "decode"
                 self._log("resume", req.uid)
+                if tr.on:
+                    tr.phase(req.uid, "decode")
                 return
             lg = logits[0, n_real - 1].cpu().numpy()
+            if tr.on:
+                tr.child("chunk.readback", t, req.uid)
             if not np.isfinite(lg).all():
                 self._fail(req, "non-finite logits at prefill")
                 return
@@ -676,6 +750,8 @@ class ServeEngine:
             req.state = "decode"
             self._tokens_generated += 1
             self._log("first_token", req.uid)
+            if tr.on:
+                tr.phase(req.uid, "decode")
             self._maybe_finish(req)
 
     def _decode_all(self) -> bool:
@@ -685,6 +761,9 @@ class ServeEngine:
                     and self.slot_req[s].state == "decode"]
         if not decoding:
             return False
+        tr = self.trace
+        if tr.on:
+            t = now()
         tokens = np.zeros((cfg.num_slots, 1), np.int32)
         pos = np.zeros((cfg.num_slots,), np.int32)
         # non-decoding slots get an all--1 block table row so their dummy
@@ -709,10 +788,16 @@ class ServeEngine:
             bt[s] = -1
         if not live:
             return False
-        logits, self.cache = self._decode_c(
-            self.params, self._dev(tokens), self.cache, self._dev(pos),
-            self._dev(bt))
+        tok_d, pos_d, bt_d = self._dev(tokens), self._dev(pos), self._dev(bt)
+        if tr.on:
+            t = tr.child("decode.stage", t)
+        logits, self.cache = self._decode_c(self.params, tok_d, self.cache,
+                                            pos_d, bt_d)
+        if tr.on:
+            t = tr.child("decode.launch", t)
         lg = logits.cpu().numpy()
+        if tr.on:
+            t = tr.child("decode.readback", t)
         n_ok = 0
         for s in live:
             req = self.slot_req[s]
@@ -725,8 +810,9 @@ class ServeEngine:
                 req.logits.append(row)
             n_ok += 1
             self._maybe_finish(req)
+        if tr.on:
+            tr.child("decode.sample", t)
         self._decode_ticks += 1
-        self.decode_tick_log.append(self.tick)
         self._tokens_generated += n_ok
         self._occupancy.append(len(live) / cfg.num_slots)
         active = sum(r is not None for r in self.slot_req)
@@ -740,3 +826,5 @@ class ServeEngine:
             self._release(req)
             req.state = "done"
             self._log("finish", req.uid)
+            if self.trace.on:
+                self.trace.phase(req.uid, None)
