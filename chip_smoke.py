@@ -1079,10 +1079,13 @@ def _newest_key_dropped(orig):
     return lambda q, cache, bt, cur, ps, **kw: orig(q, cache, bt, cur - 1, ps, **kw)
 
 
-def _engine(serve, model, art, args, streams, backend, sequential=False, **over):
+def _engine(serve, model, art, args, streams, backend, sequential=False, graphs=True,
+            **over):
     """One engine over ``art`` serving ``streams`` (staggered, or one
     request at a time), kernels or plain versions, logits recorded;
-    ``over`` replaces EngineConfig fields."""
+    ``over`` replaces EngineConfig fields. ``graphs=False`` keeps the two
+    programs eager, so that a wrapper of a kernel call (``_shadowed``)
+    runs on every call and not only in the capture."""
     from repro_torch.serve_engine import ServeEngine
 
     hook = copy.copy(art.hook())  # NO_QUANT is a shared singleton
@@ -1090,6 +1093,7 @@ def _engine(serve, model, art, args, streams, backend, sequential=False, **over)
     eng = ServeEngine(model, art.params, serve.engine_config(
         args, art.manifest, backend=backend, record_logits=True, **over),
         quant=hook)
+    eng.compile(graphs=graphs)
     if sequential:
         for uid, (_, prompt, max_new) in enumerate(streams):
             eng.submit(prompt, max_new, uid=uid)
@@ -1198,7 +1202,7 @@ def phase_engine(torch, serve, kernels, workdir: Path) -> tuple[dict, dict]:
     # kernel run is also held against its plain version on its own inputs
     shadow = {"calls": 0, "max_abs_err": 0.0, "worst_err_over_tol": 0.0}
     with _attend_wrapped(_shadowed(shadow)):
-        kern = _engine(serve, model, art, args, streams, "cuda")
+        kern = _engine(serve, model, art, args, streams, "cuda", graphs=False)
     if _tokens(kern) != out["tokens"]:
         fail("the engine replay through the kernels gave other tokens than "
              "the main path")
@@ -1329,7 +1333,7 @@ def phase_engine_long(torch, serve, kernels, workdir: Path) -> dict:
     streams = serve.engine_streams(args, cfg.vocab)
     shadow = {"calls": 0, "max_abs_err": 0.0, "worst_err_over_tol": 0.0}
     with _attend_wrapped(_shadowed(shadow)):
-        kern = _engine(serve, model, art, args, streams, "cuda")
+        kern = _engine(serve, model, art, args, streams, "cuda", graphs=False)
     if _tokens(kern) != out["tokens"]:
         fail("the long-context replay through the kernels gave other tokens than the "
              "main path")
@@ -3276,9 +3280,12 @@ def _family_streams(cfg, n: int, seed: int) -> list:
 def _dense_engine(torch, serve, kernels, arch: str, n_layers: int, body: str) -> dict:
     """One dense config at full width through the continuous-batching
     engine over an int8 page pool: RTN W4 on the card, 8 slots, 16 staggered
-    streams; every kernel launched, every kv_decode launch on the paged
-    entry and ``body``, shadowed by its plain version; kernel vs plain logits
-    within ENGINE_LOGIT_TOL of max |logit|; staggered == sequential."""
+    streams, its two programs replayed from CUDA graphs as served; every
+    kernel launched (the replays' launches as captured), every kv_decode
+    launch on the paged entry and ``body``; the same streams run eagerly
+    with every kv_decode call shadowed by its plain version, and the graphed
+    run's tokens and logits equal to that run's bit for bit; kernel vs plain
+    logits within ENGINE_LOGIT_TOL of max |logit|; staggered == sequential."""
     import numpy as np
 
     from repro_torch.deploy import rtn_artifact, tree_bytes
@@ -3298,22 +3305,33 @@ def _dense_engine(torch, serve, kernels, arch: str, n_layers: int, body: str) ->
                              "--prompt-len", str(DENSE_PROMPTS[1]), "--gen-len", "32",
                              "--kv-dtype", "int8", "--seed", "0"])
     streams = _family_streams(cfg, DENSE_ENGINE_STREAMS, 0)
+    graphed, launches, bodies = _counted(kernels, lambda: _engine(
+        serve, model, art, args, streams, "cuda"))
     shadow = {"calls": 0, "max_abs_err": 0.0, "worst_err_over_tol": 0.0}
     with _attend_wrapped(_shadowed(shadow)):
-        kern, launches, bodies = _counted(kernels, lambda: _engine(
-            serve, model, art, args, streams, "cuda"))
-    m = kern.metrics()
+        kern = _engine(serve, model, art, args, streams, "cuda", graphs=False)
+    lg, lk = _logits(graphed), _logits(kern)
+    same = (_tokens(graphed) == _tokens(kern)
+            and all(np.array_equal(lg[u], lk[u]) for u in lk))
+    m = graphed.metrics()
     entries = bodies["kv_decode_entry"]
-    distinct = sorted(len(set(t)) for t in _tokens(kern).values())
+    distinct = sorted(len(set(t)) for t in _tokens(graphed).values())
     print(f"[dense {arch}] {cfg.n_layers} layers at full width (d_model {cfg.d_model}, "
           f"{cfg.n_heads} heads over {cfg.n_kv_heads} of {cfg.hd}, vocab {cfg.vocab}): W4 "
           f"{art.nbytes()} B vs fp {fp_bytes} B; engine kernel launches {launches}, "
           f"kv_decode bodies {bodies['kv_decode']}, entries {entries}, splits "
           f"{bodies['kv_decode_split']}; {m['tokens_generated']} tokens in "
           f"{m['wall_s']:.2f}s ({m['sustained_tok_s']:.1f} tok/s sustained, "
-          f"{m['ticks']} ticks), occupancy {m['mean_slot_occupancy']:.3f}; kv_decode vs "
-          f"plain on the engine's inputs: {shadow['calls']} calls, worst err/tol "
+          f"{m['ticks']} ticks), occupancy {m['mean_slot_occupancy']:.3f}; program calls "
+          f"replayed {m['program_replays']}, eager {m['program_eager_calls']}; graphed == "
+          f"eager in tokens and logits: {same}; kv_decode vs plain on the eager run's "
+          f"inputs: {shadow['calls']} calls, worst err/tol "
           f"{shadow['worst_err_over_tol']:.3f}; distinct tokens per stream {distinct}")
+    if m["program_replays"] == 0 or m["program_eager_calls"] != 0:
+        fail(f"the {arch} engine did not replay its programs from CUDA graphs: {m}")
+    if not same:
+        fail(f"the {arch} engine's graphed run gave other tokens or logits than the "
+             f"same streams run eagerly")
     if min(launches[k] for k in ("qgemv", "qmatmul", "kv_decode")) == 0:
         fail(f"the {arch} engine did not launch every kernel: {launches}")
     if (bodies["qgemv"]["gemv_tc"] != launches["qgemv"]
@@ -3323,7 +3341,7 @@ def _dense_engine(torch, serve, kernels, arch: str, n_layers: int, body: str) ->
             or entries["paged"] != launches["kv_decode"]):
         fail(f"the {arch} engine's decode reads did not all take the paged entry's "
              f"{body} body: {bodies['kv_decode']}, {entries}")
-    if {r.state for r in kern.requests.values()} != {"done"}:
+    if {r.state for r in graphed.requests.values()} != {"done"}:
         fail(f"{arch} engine requests did not all finish")
     if shadow["calls"] == 0 or shadow["worst_err_over_tol"] > 1.0:
         fail(f"{arch} kv_decode vs its plain version on the engine's pool: {shadow}")
@@ -3348,10 +3366,10 @@ def _dense_engine(torch, serve, kernels, arch: str, n_layers: int, body: str) ->
         fail(f"{arch} engine: staggered and sequential serving of 4 streams differ")
     print(f"[dense {arch}] staggered == sequential for 4 streams: tokens and logits "
           f"bit-identical ({stag.metrics()['ticks']} vs {seq.metrics()['ticks']} ticks)")
-    del art, kern, stag, seq
+    del art, graphed, kern, stag, seq
     torch.cuda.empty_cache()
     return {"launches": launches, "bodies": bodies, "metrics": m,
-            "kv_decode_on_engine_inputs": shadow, "kernel_vs_plain_int8": vs_plain,
+            "graphed_equals_eager": same, "kv_decode_on_engine_inputs": shadow, "kernel_vs_plain_int8": vs_plain,
             "logits_limit": tol, "distinct_tokens_per_stream": distinct,
             "fp_bytes": fp_bytes, "phase_wall_s": time.perf_counter() - t_phase}
 

@@ -470,7 +470,8 @@ def _serve_engine(args, cfg, model, params, artifact):
           f"{m['ticks_decode']}, both {m['ticks_both']}); prefill rows "
           f"{m['chunk_tokens']}/{m['chunk_rows']}; head of queue waited on "
           f"slots {m['admit_wait_slots']}, pages {m['admit_wait_pages']}; "
-          f"plans built {m['plans_built']}")
+          f"plans built {m['plans_built']}; program calls replayed "
+          f"{m['program_replays']}, eager {m['program_eager_calls']}")
     return {"metrics": m,
             "tokens": {u: list(r.generated) for u, r in eng.requests.items()},
             "states": {u: r.state for u, r in eng.requests.items()}}

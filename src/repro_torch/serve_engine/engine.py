@@ -8,11 +8,14 @@ starving decode), then run one batched decode step over every decoding
 slot. Two fixed-shape programs cover everything: a (num_slots, 1) decode
 step and a (1, prefill_chunk) prefill step, both the same
 ``decode_step`` cached path — chunked prefill *is* multi-token decode.
-They run eagerly under ``torch.inference_mode()`` and write the KV pool
-in place (the JAX package jits them and threads the pool through); on
-the card the decode step launches ``kv_decode`` once per layer for an
-int8 pool, and the packed ``qgemv``/``qmatmul`` kernels for packed
-weights.
+Both write the KV pool in place, under ``torch.inference_mode()`` (the JAX
+package jits them and threads the pool through). On the CPU they run
+eagerly. On the card ``compile()`` captures each in a CUDA graph against
+the engine's own params and pool, and every call replays it (``graphs.py``):
+the decode step's ``kv_decode`` launch per layer for an int8 pool and the
+packed ``qgemv``/``qmatmul`` kernels for packed weights then leave the host
+as one launch. A program that does not write its cache in place stays
+eager on the card too.
 
 Admission is governed by ``EngineConfig.overcommit``:
 
@@ -41,9 +44,10 @@ request (state ``failed``); everything else in the batch continues.
 ``drain()`` is the graceful way out — stop admission, finish (or
 preempt-and-report) in-flight work, return per-request statuses.
 
-Telemetry: integer counters (``counters()``, also in ``metrics()``) and
-spans of each tick's phases and each request's wait (``trace.py``; off
-by default, ``engine.trace.enable()``).
+Telemetry: integer counters (``counters()``, also in ``metrics()``; among
+them the programs' calls, replayed and eager) and spans of each tick's
+phases and each request's wait (``trace.py``; off by default,
+``engine.trace.enable()``).
 """
 from __future__ import annotations
 
@@ -59,6 +63,7 @@ from ..interop import tree_leaves
 from ..kernels.kvattn.ops import BACKENDS
 from ..launch.watchdog import StepWatchdog
 from ..models.common import NO_QUANT, PAGED_KV_DTYPES
+from .graphs import Program, writes_in_place
 from .pages import PagePool, PagePoolExhausted
 from .trace import Trace, now
 
@@ -177,9 +182,10 @@ class ServeEngine:
     ``share_compiled`` is a test/bench convenience: another engine with
     the *same* model, quant hook and program shape
     (``EngineConfig.program_shape`` — scheduler policy may differ)
-    whose two programs and warm-up are reused (the programs close over
-    none of the per-engine state — params, cache and block tables are
-    arguments).
+    whose two eager programs are reused (the programs close over none of
+    the per-engine state — params, cache and block tables are arguments).
+    A graph is bound to one pool and one set of params, so each engine
+    runs its own warm-up and, on the card, captures its own graphs.
     """
 
     def __init__(self, model, params, cfg: EngineConfig = EngineConfig(), *,
@@ -251,10 +257,14 @@ class ServeEngine:
             return model.decode_step(params, tokens, cache, pos, quant,
                                      extras=extras(bt), all_logits=True)
 
-        # compile() sets _decode_c/_chunk_c after the warm-up; step() calls
-        # them, so a fault injector can wrap them
+        # compile() sets _decode_c/_chunk_c (graphs.Program) after the
+        # warm-up; step() calls them, so a fault injector can wrap them.
+        # _in_place: whether each program's warm-up wrote its cache in
+        # place (None until compile())
         self._decode_fn, self._chunk_fn = decode_fn, chunk_fn
         self._decode_c = self._chunk_c = None
+        self._programs: tuple = ()
+        self._in_place: Optional[tuple] = None
         if share_compiled is not None:
             donor = share_compiled
             if donor.cfg.program_shape != cfg.program_shape:
@@ -262,9 +272,6 @@ class ServeEngine:
                                  "program shape — compiled programs would "
                                  "not match")
             self._decode_fn, self._chunk_fn = donor._decode_fn, donor._chunk_fn
-            self._decode_c = donor._decode_c
-            self._chunk_c = donor._chunk_c
-            self._compile_s = donor._compile_s
 
     @classmethod
     def from_artifact(cls, artifact_dir: str, *, arch: Optional[str] = None,
@@ -459,7 +466,7 @@ class ServeEngine:
                 self._preempt(req)
         return {u: r.state for u, r in self.requests.items()}
 
-    def compile(self) -> float:
+    def compile(self, *, graphs: bool = True) -> float:
         """Make both programs ready; returns their set-up seconds.
 
         On the card this loads the kernel libraries the programs launch
@@ -467,37 +474,70 @@ class ServeEngine:
         weights, ``kv_decode`` for an int8 pool, unless the backends ask
         for the plain versions. Then it runs one warm-up decode and one
         warm-up chunk against a scratch pool (its sink page only), which
-        leaves the engine's own pool, counters and block tables alone.
+        leaves the engine's own pool, counters and block tables alone. Last,
+        on the card, it captures each program that wrote its cache in place
+        in a CUDA graph against this engine's params and pool (the two
+        graphs share one memory pool: they never run at once), warmed and
+        captured on a side stream; ``graphs=False`` keeps both eager, for
+        a run that hooks Python into every call (a kernel shadowed by its
+        plain version) or holds the graphs against eager.
         Called lazily by step() — call it up front to keep set-up out of
         measured serving walls."""
         if self._compile_s is None:
             cfg = self.cfg
             t0 = time.perf_counter()
-            if self.device.type == "cuda":
-                if cfg.kv_dtype == "int8" and cfg.backend != "torch":
-                    from ..kernels.kvattn import kernel as kv_kernel
-
-                    kv_kernel.load_library()
-                if (self.quant.packed_backend != "torch"
-                        and any(t.dtype == torch.int8
-                                for t in tree_leaves(self.params))):
-                    from ..kernels.qmatmul import kernel as qmm_kernel
-
-                    qmm_kernel.load_library()
-            with torch.inference_mode():
-                scratch = self.model.init_paged_cache(
-                    1, cfg.page_size, cfg.kv_dtype, self.device)
-            bt = self._dev(np.full_like(self.block_tables, -1))
-            tok = self._dev(np.zeros((cfg.num_slots, 1), np.int32))
-            pos = self._dev(np.zeros((cfg.num_slots,), np.int32))
-            self._decode_fn(self.params, tok, scratch, pos, bt)
-            tokc = self._dev(np.zeros((1, cfg.prefill_chunk), np.int32))
-            self._chunk_fn(self.params, tokc, scratch, pos[:1], bt[:1])
-            if self.device.type == "cuda":
+            cuda = self.device.type == "cuda"
+            capture = cuda and graphs
+            side = torch.cuda.Stream(self.device) if capture else None
+            if capture:
+                side.wait_stream(torch.cuda.current_stream(self.device))
+            with torch.cuda.stream(side):
+                self._in_place = self._warm_up()
+            self._decode_c = Program(self._decode_fn)
+            self._chunk_c = Program(self._chunk_fn)
+            self._programs = (self._decode_c, self._chunk_c)
+            if capture:
+                pool = torch.cuda.graph_pool_handle()
+                shapes = ((cfg.num_slots, 1), (1, cfg.prefill_chunk))
+                for prog, shape, ok in zip(self._programs, shapes, self._in_place):
+                    if ok:
+                        prog.capture(self.params, self.cache, shape,
+                                     cfg.max_pages_per_stream, stream=side,
+                                     pool=pool)
+            if cuda:
                 torch.cuda.synchronize(self.device)
-            self._decode_c, self._chunk_c = self._decode_fn, self._chunk_fn
             self._compile_s = time.perf_counter() - t0
         return self._compile_s
+
+    def _warm_up(self) -> tuple:
+        """Load the kernel libraries and run each program once against a
+        scratch pool; whether each wrote that cache in place."""
+        cfg = self.cfg
+        if self.device.type == "cuda":
+            if cfg.kv_dtype == "int8" and cfg.backend != "torch":
+                from ..kernels.kvattn import kernel as kv_kernel
+
+                kv_kernel.load_library()
+            if (self.quant.packed_backend != "torch"
+                    and any(t.dtype == torch.int8
+                            for t in tree_leaves(self.params))):
+                from ..kernels.qmatmul import kernel as qmm_kernel
+
+                qmm_kernel.load_library()
+        with torch.inference_mode():
+            scratch = self.model.init_paged_cache(
+                1, cfg.page_size, cfg.kv_dtype, self.device)
+        bt = self._dev(np.full_like(self.block_tables, -1))
+        tok = self._dev(np.zeros((cfg.num_slots, 1), np.int32))
+        pos = self._dev(np.zeros((cfg.num_slots,), np.int32))
+        tokc = self._dev(np.zeros((1, cfg.prefill_chunk), np.int32))
+        verdicts = []
+        for fn, args in ((self._decode_fn, (tok, scratch, pos, bt)),
+                         (self._chunk_fn, (tokc, scratch, pos[:1], bt[:1]))):
+            given = tree_leaves(scratch)  # before the call: it may rebind them
+            _, out = fn(self.params, *args)
+            verdicts.append(writes_in_place(given, out))
+        return tuple(verdicts)
 
     # -- invariants / metrics ----------------------------------------------
 
@@ -510,7 +550,10 @@ class ServeEngine:
     def counters(self) -> dict:
         """The integer counters of ticks, prefill rows and admission
         waits; ``plans_built`` is the kernel plans made so far in the
-        process (``kernels/spec.py``'s caches' misses)."""
+        process (``kernels/spec.py``'s caches' misses);
+        ``program_replays`` and ``program_eager_calls`` the two programs'
+        calls since ``compile()``, replayed from a CUDA graph and run
+        eagerly."""
         from ..kernels import spec
 
         return {
@@ -523,6 +566,8 @@ class ServeEngine:
             "admit_wait_pages": self._admit_wait_pages,
             "plans_built": sum(f.cache_info().misses for f in (
                 spec.plan_qgemv, spec.plan_qmatmul, spec.plan_kv_decode)),
+            "program_replays": sum(p.replays for p in self._programs),
+            "program_eager_calls": sum(p.eager_calls for p in self._programs),
         }
 
     def metrics(self) -> dict:

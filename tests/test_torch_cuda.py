@@ -619,7 +619,9 @@ def test_kv_decode_paged_is_deterministic(cuda):
 def test_engine_decode_reads_the_pool_without_gather(cuda, monkeypatch):
     """On the card an int8-pool engine's decode steps go through the paged
     entry and never gather the pool (paged_view raises inside a decode
-    step); its chunked-prefill reads keep the gathered view."""
+    step); its chunked-prefill reads keep the gathered view. The programs
+    run their Python only in compile()'s warm-up and capture, and every
+    call replays what was captured, so the checks wrap them there."""
     from repro_torch.deploy import rtn_artifact
     from repro_torch.models import common as cm
     from repro_torch.models import get_model
@@ -629,9 +631,8 @@ def test_engine_decode_reads_the_pool_without_gather(cuda, monkeypatch):
     params = model.init(torch.Generator(device=cuda).manual_seed(0))
     eng = ServeEngine(model, rtn_artifact(params, 4, None, cfg=cfg).params, EngineConfig(
         num_slots=3, page_size=4, num_pages=49, max_len=32, prefill_chunk=16))
-    eng.compile()
     state = {"decoding": False, "gathers": 0}
-    orig_view, orig_decode = cm.paged_view, eng._decode_c
+    orig_view, orig_decode = cm.paged_view, eng._decode_fn
 
     def view(*a, **kw):
         if state["decoding"]:
@@ -648,7 +649,9 @@ def test_engine_decode_reads_the_pool_without_gather(cuda, monkeypatch):
 
     monkeypatch.setattr(cm, "paged_view", view)
     monkeypatch.setattr(kv_ops, "paged_view", view)
-    eng._decode_c = decode
+    eng._decode_fn = decode
+    eng.compile()
+    assert eng._decode_c.graph is not None
     kv_kernel.reset_launches()
     rng = np.random.default_rng(11)
     for uid, n in enumerate((5, 13, 9)):
